@@ -1,0 +1,198 @@
+"""NetVLAD head and descriptor models, the port of openibl_tpu/models/netvlad.py.
+
+The head uses the JAX package's factorization,
+
+    vlad[n,k,c] = sum_p a[n,p,k] * x[n,p,c]  -  (sum_p a[n,p,k]) * centroid[k,c]
+
+one batched (K x P) @ (P x C) product plus a rank-1 correction, never the
+(N, K, C, P) residual tensor. ``netvlad_apply`` (eager) is the plain version
+of the fused CUDA kernel in ops/netvlad_kernel.py; ``fused=True`` routes the
+head through that kernel.
+
+Parameters keep the JAX layouts: assign_w (C, K), centroids (K, C), the PCA
+projection w (D_in, D_out) and b (D_out,).
+"""
+
+import numpy as np
+import torch
+from torch import nn
+
+from openibl_tpu_torch.models.vgg import VGG16
+from openibl_tpu_torch.utils import l2_normalize
+
+
+def init_netvlad_params(generator=None, num_clusters=64, dim=512,
+                        alpha=100.0):
+    """Random init (uniform centroids, alpha-scaled normal assignment), the
+    JAX package's init_netvlad_params (different numbers: torch RNG)."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    centroids = torch.rand((num_clusters, dim), generator=generator)
+    assign_w = (torch.randn((dim, num_clusters), generator=generator)
+                * float(np.sqrt(2.0 / dim)) * alpha / 100.0)
+    return {"assign_w": assign_w, "centroids": centroids}
+
+
+def netvlad_init_from_clusters(clsts, traindescs):
+    """Centroid-based init (numpy): alpha = -ln(0.01) / mean top-1/top-2
+    assignment gap; assign_w = alpha * normalized centroids as (C, K)."""
+    clsts = np.asarray(clsts, np.float32)
+    traindescs = np.asarray(traindescs, np.float32)
+    clsts_assign = clsts / np.linalg.norm(clsts, axis=1, keepdims=True)
+    dots = clsts_assign @ traindescs.T  # (K, Nd)
+    top2 = -np.partition(-dots, 1, axis=0)[:2]  # (2, Nd) descending
+    alpha = float(-np.log(0.01) / np.mean(top2[0] - top2[1]))
+    return {
+        "assign_w": torch.from_numpy(np.ascontiguousarray(
+            (alpha * clsts_assign).T)),  # (C, K)
+        "centroids": torch.from_numpy(clsts),  # (K, C)
+    }
+
+
+def netvlad_apply(params, fmap, *, normalize_input=True, fused=False,
+                  valid_hw=None):
+    """Soft-assignment VLAD: fmap (N, H, W, C) → (N, K, C) un-normalized."""
+    if valid_hw is not None:
+        if fused:
+            raise ValueError("the fused kernel has no masked path; "
+                             "use fused=False for bucket-padded inputs")
+        raise NotImplementedError(
+            "masked (valid_hw) NetVLAD is not ported yet: ROADMAP Queue 1 "
+            "item 8 (masked variable-shape eval)")
+    if fused:
+        from openibl_tpu_torch.ops.netvlad_kernel import netvlad_fused
+
+        return netvlad_fused(fmap, params["assign_w"], params["centroids"],
+                             normalize_input=normalize_input)
+    n, h, w, c = fmap.shape
+    x = fmap.float()
+    if normalize_input:
+        x = l2_normalize(x, dim=-1)  # per location, across channels
+    xf = x.reshape(n, h * w, c)
+    logits = torch.matmul(xf, params["assign_w"].float())  # (N, P, K)
+    a = torch.softmax(logits, dim=-1)
+    weighted = torch.matmul(a.transpose(1, 2), xf)  # (N, K, C)
+    a_sum = torch.sum(a, dim=1)  # (N, K)
+    return weighted - a_sum[:, :, None] * params["centroids"].float()[None]
+
+
+def vlad_postprocess(vlad):
+    """intra-norm (per cluster) → K-major flatten → global L2."""
+    vlad = l2_normalize(vlad, dim=-1)
+    flat = vlad.reshape(vlad.shape[0], -1)
+    return l2_normalize(flat, dim=-1)
+
+
+def init_pca_layer_params(generator=None, in_dim=32768, out_dim=4096):
+    """torch Conv2d default init: U(±1/sqrt(fan_in))."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    bound = 1.0 / float(np.sqrt(in_dim))
+    return {
+        "w": torch.rand((in_dim, out_dim), generator=generator) * 2 * bound
+        - bound,
+        "b": torch.rand((out_dim,), generator=generator) * 2 * bound - bound,
+    }
+
+
+def pca_layer_apply(params, x):
+    """1x1-conv-as-matmul PCA projection + L2 norm."""
+    return l2_normalize(torch.matmul(x, params["w"]) + params["b"], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+class NetVLAD(nn.Module):
+    """forward(fmap (N, H, W, C)) → (N, K, C) un-normalized VLAD."""
+
+    def __init__(self, num_clusters=64, dim=512, normalize_input=True,
+                 fused=False, generator=None):
+        super().__init__()
+        self.num_clusters = num_clusters
+        self.dim = dim
+        self.normalize_input = normalize_input
+        self.fused = fused
+        self.assign_w = nn.Parameter(torch.empty(dim, num_clusters))
+        self.centroids = nn.Parameter(torch.empty(num_clusters, dim))
+        self.init(generator)
+
+    @torch.no_grad()
+    def init(self, generator=None):
+        p = init_netvlad_params(generator, self.num_clusters, self.dim)
+        self.assign_w.copy_(p["assign_w"])
+        self.centroids.copy_(p["centroids"])
+        return self
+
+    def forward(self, fmap):
+        params = {"assign_w": self.assign_w, "centroids": self.centroids}
+        return netvlad_apply(params, fmap,
+                             normalize_input=self.normalize_input,
+                             fused=self.fused)
+
+    def descriptor(self, fmap):
+        """(N, H, W, C) → (N, K*C) intra- and globally normalized."""
+        if self.fused:
+            from openibl_tpu_torch.ops.netvlad_kernel import netvlad_fused
+
+            vlad = netvlad_fused(fmap, self.assign_w, self.centroids,
+                                 normalize_input=self.normalize_input,
+                                 postprocess=True)
+            return vlad.reshape(vlad.shape[0], -1)
+        return vlad_postprocess(self(fmap))
+
+
+class PCALayer(nn.Module):
+    """Learned PCA-whitening projection, w (D_in, D_out) + b, then L2."""
+
+    def __init__(self, in_dim, out_dim, generator=None):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(in_dim, out_dim))
+        self.b = nn.Parameter(torch.empty(out_dim))
+        with torch.no_grad():
+            p = init_pca_layer_params(generator, in_dim, out_dim)
+            self.w.copy_(p["w"])
+            self.b.copy_(p["b"])
+
+    def forward(self, x):
+        return pca_layer_apply({"w": self.w, "b": self.b}, x)
+
+
+class EmbedNet(nn.Module):
+    """backbone + NetVLAD → (pool_x, 32768-d L2-normalized descriptor)."""
+
+    def __init__(self, base=None, net_vlad=None):
+        super().__init__()
+        self.base = VGG16() if base is None else base
+        self.net_vlad = NetVLAD() if net_vlad is None else net_vlad
+
+    @property
+    def descriptor_dim(self):
+        return self.net_vlad.num_clusters * self.net_vlad.dim
+
+    def forward(self, images):
+        pool_x, fmap = self.base(images)
+        return pool_x, self.net_vlad.descriptor(fmap)
+
+
+class EmbedNetPCA(nn.Module):
+    """EmbedNet + learned PCA-whitening projection (the hub inference model):
+    images (N, H, W, 3) → (N, pca_dim) unit-norm descriptors."""
+
+    def __init__(self, base=None, net_vlad=None, pca_dim=4096,
+                 generator=None):
+        super().__init__()
+        self.base = VGG16() if base is None else base
+        self.net_vlad = NetVLAD() if net_vlad is None else net_vlad
+        self.pca_dim = pca_dim
+        in_dim = self.net_vlad.num_clusters * self.net_vlad.dim
+        self.pca_layer = PCALayer(in_dim, pca_dim, generator)
+
+    @property
+    def descriptor_dim(self):
+        return self.pca_dim
+
+    def forward(self, images):
+        _, fmap = self.base(images)
+        return self.pca_layer(self.net_vlad.descriptor(fmap))

@@ -1,0 +1,94 @@
+"""VGG16 conv backbone (conv1_1 … conv5_3), the port of openibl_tpu/models/vgg.py.
+
+The public layout is the JAX package's: images (N, H, W, 3) in, conv5_3 map
+(N, H/16, W/16, 512) out. Inside, the convolutions run on an NCHW view in
+``channels_last`` memory, which is NHWC bytes: the input permute is free, and
+the conv5_3 map permuted back to NHWC is already a contiguous (N, P, C)
+array for the fused NetVLAD kernel. The convolutions stay cuDNN
+(``F.conv2d``), as the JAX package leaves them to XLA. conv5_3 keeps no ReLU
+and no pool (the reference drops features[-2:]). Unmasked forward only: the
+masked variable-shape path is ROADMAP Queue 1 item 8.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from openibl_tpu_torch.data.transforms import PIXEL_MEAN
+
+# (name, in_channels, out_channels, relu_after, pool_after)
+VGG16_LAYERS = (
+    ("conv1_1", 3, 64, True, False),
+    ("conv1_2", 64, 64, True, True),
+    ("conv2_1", 64, 128, True, False),
+    ("conv2_2", 128, 128, True, True),
+    ("conv3_1", 128, 256, True, False),
+    ("conv3_2", 256, 256, True, False),
+    ("conv3_3", 256, 256, True, True),
+    ("conv4_1", 256, 512, True, False),
+    ("conv4_2", 512, 512, True, False),
+    ("conv4_3", 512, 512, True, True),
+    ("conv5_1", 512, 512, True, False),
+    ("conv5_2", 512, 512, True, False),
+    ("conv5_3", 512, 512, False, False),
+)
+
+FEATURE_DIM = 512
+
+
+class VGG16(nn.Module):
+    """forward(images) → (pool_x (N, 512) f32, fmap (N, H/16, W/16, 512)).
+
+    uint8 images are raw pixels: the mean subtraction happens here, in the
+    compute dtype (numerically identical to host normalization, a quarter of
+    the host→device bytes). Float images are taken as already normalized.
+    The map stays in the compute dtype; its consumers upcast to f32.
+    """
+
+    def __init__(self, cut_at_pooling=False, compute_dtype=torch.float32,
+                 generator=None):
+        super().__init__()
+        self.cut_at_pooling = cut_at_pooling
+        self.compute_dtype = compute_dtype
+        self.feature_dim = FEATURE_DIM
+        for name, cin, cout, _, _ in VGG16_LAYERS:
+            setattr(self, name, nn.Conv2d(cin, cout, 3, padding=1))
+        self.init(generator)
+
+    @torch.no_grad()
+    def init(self, generator=None):
+        """Kaiming-normal (fan_out) weights and zero biases, the JAX
+        package's init_vgg16_params (different numbers: torch RNG)."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for name, _, cout, _, _ in VGG16_LAYERS:
+            conv = getattr(self, name)
+            std = float(np.sqrt(2.0 / (3 * 3 * cout)))
+            conv.weight.copy_(torch.randn(conv.weight.shape,
+                                          generator=generator) * std)
+            conv.bias.zero_()
+        return self
+
+    def forward(self, images):
+        dtype = self.compute_dtype
+        if images.dtype == torch.uint8:
+            mean = torch.as_tensor(PIXEL_MEAN, dtype=dtype,
+                                   device=images.device)
+            images = images.to(dtype) - mean
+        # (N, H, W, 3) → NCHW view of NHWC bytes (channels_last)
+        x = images.to(dtype).permute(0, 3, 1, 2)
+        for name, _, _, relu, pool in VGG16_LAYERS:
+            conv = getattr(self, name)
+            x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype),
+                         padding=1)
+            if relu:
+                x = F.relu(x)
+            if pool:
+                x = F.max_pool2d(x, 2, 2)  # VALID: floors odd sizes
+        fmap = x.contiguous(memory_format=torch.channels_last).permute(
+            0, 2, 3, 1)  # (N, h, w, C), contiguous
+        if self.cut_at_pooling:
+            return fmap
+        pool_x = torch.amax(fmap, dim=(1, 2)).float()
+        return pool_x, fmap

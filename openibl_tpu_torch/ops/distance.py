@@ -1,0 +1,140 @@
+"""Exact k-nearest-neighbour retrieval (port of openibl_tpu/ops/distance.py,
+retrieval half).
+
+``topk_nearest`` either materializes the (Q, N) distance matrix and runs one
+top-k (small problems) or streams the gallery in tiles and merges a running
+top-k (O(Q*k) state). f16 and int8 galleries (with per-row scales) stay in
+their storage dtype on the streaming path and are widened one tile at a
+time. The JAX package leaves this step to XLA; here it is ``torch.matmul``
+and ``torch.topk``. ``return_rowmax`` comes with the k-reciprocal rerank
+(ROADMAP Queue 1 item 10); the mesh-sharded search with multi-GPU (item 12).
+"""
+
+import os
+
+import numpy as np
+import torch
+
+
+def pairwise_sqdist(x, y):
+    """Squared euclidean distances (M, N) between rows of x (M, D), y (N, D)."""
+    x, y = x.float(), y.float()
+    x2 = torch.sum(x * x, dim=1, keepdim=True)
+    y2 = torch.sum(y * y, dim=1, keepdim=True).T
+    return x2 + y2 - 2.0 * torch.matmul(x, y.T)
+
+
+# distmats up to this size are materialized whole (one top-k); above it the
+# streaming scan keeps memory at O(Q*k). The full path's peak is ~3x the
+# distmat (d, top-k workspace), so this bounds it to ~1.5 GB.
+_FULL_DISTMAT_BUDGET_BYTES = 512 * 1024**2
+
+# budget for the transient f32 widening of an f16/int8 gallery on the full
+# path; None = a quarter of the device's free memory (env override below)
+_WIDEN_BUDGET_BYTES = None
+
+# streaming tile target: each step widens one (chunk, D) f32 tile and holds
+# ~3 copies of the (Q, chunk) distmat
+_STREAM_TILE_BYTES = 256 * 1024**2
+
+
+def _widen_budget_bytes(device=None):
+    if _WIDEN_BUDGET_BYTES is not None:
+        return _WIDEN_BUDGET_BYTES
+    env = os.environ.get("OPENIBL_WIDEN_BUDGET_BYTES")
+    if env:
+        return int(env)
+    if device is not None and torch.device(device).type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return max(free // 4, 256 * 1024**2)
+    return 4 * 1024**3
+
+
+def _auto_full_path(q_rows, n, feat_dim, gallery_widened, device=None):
+    """Whether topk_nearest should materialize the full distance matrix:
+    the f32 distmat fits its budget and, for reduced-precision galleries,
+    the transient f32 copy of the gallery fits the widening budget."""
+    if 4 * q_rows * n > _FULL_DISTMAT_BUDGET_BYTES:
+        return False
+    if gallery_widened and 4 * n * feat_dim > _widen_budget_bytes(device):
+        return False
+    return True
+
+
+def _auto_chunk(n, feat_dim, q_rows=1):
+    # budget both per-step transients: the (chunk, D) widened tile and the
+    # ~3x (Q, chunk) distmat workspace
+    denom = 4 * (feat_dim + 3 * max(int(q_rows), 1))
+    rows = _STREAM_TILE_BYTES // max(denom, 1)
+    return int(min(max(rows, 4096), max(n, 1)))
+
+
+def quantize_index_int8(descriptors):
+    """Symmetric per-row int8 quantization (numpy): (codes (N, D) int8,
+    scales (N,) f32) with descriptors ≈ codes * scales[:, None]."""
+    x = np.asarray(descriptors, np.float32)
+    scales = np.abs(x).max(axis=1) / 127.0
+    scales = np.maximum(scales, np.finfo(np.float32).tiny).astype(np.float32)
+    codes = np.clip(np.rint(x / scales[:, None]), -127, 127).astype(np.int8)
+    return codes, scales
+
+
+def _widen(tile, scale):
+    tile = tile.float()
+    return tile if scale is None else tile * scale[:, None]
+
+
+def _smallest(d, k):
+    return torch.topk(d, k, dim=1, largest=False, sorted=True)
+
+
+def topk_nearest(query, gallery, k, chunk=None, full_path=None,
+                 gallery_scale=None, gallery_sqnorm=None):
+    """k nearest gallery rows per query row by squared L2.
+
+    query (Q, D); gallery (N, D) f32, f16 or int8 (with ``gallery_scale``
+    (N,) f32); ``gallery_sqnorm`` (N,) f32, the squared norms of the
+    (dequantized) rows, precomputed once at index load. The search runs on
+    the gallery's device. ``full_path=None`` chooses by the budgets above;
+    ``chunk=None`` sizes streaming tiles to ~256 MB. Returns (dists (Q, k)
+    f32, indices (Q, k) int64), nearest first.
+    """
+    g = torch.as_tensor(gallery)
+    q = torch.as_tensor(query).to(device=g.device, dtype=torch.float32)
+    scale = (None if gallery_scale is None else
+             torch.as_tensor(gallery_scale).to(g.device, torch.float32))
+    sqn = (None if gallery_sqnorm is None else
+           torch.as_tensor(gallery_sqnorm).to(g.device, torch.float32))
+    n = g.shape[0]
+    k = min(k, n)
+    if chunk is None:
+        chunk = _auto_chunk(n, g.shape[1], q.shape[0])
+    if full_path is None:
+        widened = scale is not None or g.dtype != torch.float32
+        full_path = _auto_full_path(q.shape[0], n, g.shape[1], widened,
+                                    g.device)
+    q2 = torch.sum(q * q, dim=1, keepdim=True)
+    if full_path:
+        # int8 scales apply to the product's columns: (q·codes)·s == q·(codes·s)
+        xy = torch.matmul(q, g.float().T)
+        if scale is not None:
+            xy = xy * scale[None, :]
+        n2 = sqn if sqn is not None else torch.sum(
+            torch.square(_widen(g, scale)), dim=1)
+        return _smallest(q2 + n2[None, :] - 2.0 * xy, k)
+    best_d = best_i = None
+    for s in range(0, n, chunk):
+        tile = _widen(g[s:s + chunk], None if scale is None
+                      else scale[s:s + chunk])
+        t2 = (sqn[s:s + chunk] if sqn is not None
+              else torch.sum(tile * tile, dim=1))
+        d = q2 + t2[None, :] - 2.0 * torch.matmul(q, tile.T)
+        td, ti = _smallest(d, min(k, tile.shape[0]))
+        ti = ti + s
+        if best_d is not None:
+            td = torch.cat([best_d, td], dim=1)
+            ti = torch.cat([best_i, ti], dim=1)
+            td, pos = _smallest(td, min(k, td.shape[1]))
+            ti = torch.gather(ti, 1, pos)
+        best_d, best_i = td, ti
+    return best_d, best_i

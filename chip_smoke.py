@@ -2,19 +2,30 @@
 
   python3 chip_smoke.py
 
-Builds the fused NetVLAD kernel (csrc/netvlad.cu) from this checkout, holds
-it to its plain PyTorch version at the main path's shape, then drives the
-serving path at full width: VGG16 + NetVLAD (K=64) + PCA 32768→4096 at
-480x640, a RetrievalService over a 100,000 x 4096 f32 gallery with 32
-planted rows, queries through examples/serve_torch.py's HTTP handler on
-localhost, and Recall@1 over the planted rows. Weights are random from a
-seed; the NetVLAD layer is bootstrapped from clusters of the model's own
-conv5 features (the package's netvlad_init_from_clusters, as a trainer
-initializes it), because the raw random init maps every image to nearly the
-same descriptor. Prints timing lines (CUDA events) with the card's name and
-power limit, one JSON line on the kernels, and as its last line
-{"ok": true, "device": {...}}. Any failed check raises: the exit code is then
-non-zero and the last line is not printed. Needs CUDA; imports no jax.
+Builds the port's two CUDA kernels from this checkout, one nvcc each, in
+parallel: the fused NetVLAD head (K1, csrc/netvlad.cu) and the PQ ADC tile
+scorer (K2, csrc/pq_adc.cu). Holds each to its plain PyTorch version on the
+card at the main path's shapes, then drives the serving path at full width:
+VGG16 + NetVLAD (K=64) + PCA 32768→4096 at 480x640, a RetrievalService over
+a 100,000 x 4096 f32 gallery with 32 planted rows, queries through
+examples/serve_torch.py's HTTP handler on localhost, and Recall@1 over the
+planted rows. Then the index family over the same gallery, built on the
+card (PQ m=64, OPQ, IVF and IVFADC with 256 cells), and its served modes:
+a codes-only PQ index, IVFADC, the PQ re-rank and full-width IVF, each
+through a RetrievalService (PQ also through HTTP) with its Recall@1/5/10.
+
+Weights are random from a seed; the NetVLAD layer is bootstrapped from
+clusters of the model's own conv5 features (the package's
+netvlad_init_from_clusters, as a trainer initializes it), and the PCA
+layer's bias centres the VLADs on their mean over the bootstrap images, as
+a PCA fit does, because the raw random init maps every image to nearly the
+same descriptor. Each served
+path runs with the kernels' launch counts set to 0 just before it and read
+just after. Prints timing lines (CUDA events, or the host clock for
+service.query) with the card's name and power limit, one JSON line on the
+kernels, and as its last line {"ok": true, "device": {...}}. Any failed
+check raises: the exit code is then non-zero and the last line is not
+printed. Needs CUDA; imports no jax.
 """
 
 import importlib.util
@@ -28,6 +39,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,7 +48,14 @@ from PIL import Image
 ROOT = osp.dirname(osp.abspath(__file__))
 N_IMG, H, W = 16, 480, 640
 GALLERY, DIM, PLANTED = 100_000, 4096, 32
-RTOL, ATOL = 1e-4, 1e-5  # both sides upcast the same values to f32
+BOOT_IMGS = 64  # images whose features initialize NetVLAD and centre PCA
+RTOL, ATOL = 1e-4, 1e-5  # K1: both sides upcast the same values to f32
+# K2: the kernel and its plain version add the same f32 values in the same
+# subspace order
+K2_TOL = 1e-5
+K2_ROWS = (1_000_000, 999_983, GALLERY)  # 1M codes, a ragged N, main path
+PQ_M, NLIST, NPROBE, SHORTLIST = 64, 256, 16, 256
+KERNELS = {"netvlad": ["netvlad.cu"], "pq_adc": ["pq_adc.cu"]}
 
 
 def check(cond, what):
@@ -69,6 +88,16 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def p50_query_ms(service, images, n=30, warm=5):
+    """Median host-clock latency of a batch-1 service.query, top-10."""
+    lat = []
+    for j in range(n):
+        t0 = time.perf_counter()
+        service.query([images[j % len(images)]], topk=10)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat[warm:])
+
+
 def scenes(rng, n):
     """uint8 (n, H, W, 3) images: smooth random colour fields (a random
     grid of 2..24 rows, bilinearly upsampled) plus pixel noise. White noise
@@ -96,6 +125,21 @@ def same_top10(d_a, i_a, d_b, i_b, what, tie=1e-5):
             f"(< {tie}), {swaps} rank swaps among near-ties")
 
 
+def same_top10_up_to_cut(d_a, i_a, d_b, i_b, what, tie):
+    """Like same_top10, but a row may also be swapped for another across
+    the 10th place when its distance lies within ``tie`` of the 10th."""
+    d_a, i_a, d_b, i_b = (t.cpu() for t in (d_a, i_a, d_b, i_b))
+    gap = float((d_a - d_b).abs().max())
+    ok, cut = gap < tie, 0
+    for da, ia, db, ib in zip(d_a, i_a.tolist(), d_b, i_b.tolist()):
+        for pos, i in enumerate(ia):
+            if i not in ib:
+                cut += 1
+                ok = ok and abs(float(da[pos]) - float(db[-1])) < tie
+    return (ok, f"{what}: same top-10 rows, distances within {gap:.3g} "
+                f"(< {tie}), {cut} swapped across the 10th among near-ties")
+
+
 def reference_state(model):
     """The port model as a reference-layout torch state dict (.pth)."""
     from openibl_tpu_torch.models.convert import TORCH_VGG16_CONV_INDEX
@@ -116,38 +160,32 @@ def reference_state(model):
     return sd
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke.py needs a CUDA device "
-                         "(torch.cuda.is_available() is False)")
-    sys.path.insert(0, ROOT)
-    from openibl_tpu_torch.engine.evaluator import evaluate_descriptors
-    from openibl_tpu_torch.hub import vgg16_netvlad
-    from openibl_tpu_torch.models.netvlad import netvlad_init_from_clusters
+def build_kernels():
+    """One nvcc per source, all started together."""
     from openibl_tpu_torch.ops import _build
-    from openibl_tpu_torch.ops import netvlad_kernel as nk
-    from openibl_tpu_torch.ops.distance import topk_nearest
-    from openibl_tpu_torch.serving import RetrievalService
 
-    card = card_line()
-    print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+    def one(name):
+        t0 = time.perf_counter()
+        _build.load_library(name, KERNELS[name])
+        return name, time.perf_counter() - t0
 
-    # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = _build.library_path("netvlad", ["netvlad.cu"])
-    _build.load_library("netvlad", ["netvlad.cu"])
-    print(f"phase build: {osp.relpath(lib_path, ROOT)} in "
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        done = list(pool.map(one, KERNELS))
+    print(f"phase build: {len(done)} kernels in parallel, "
           f"{time.perf_counter() - t0:.2f} s")
-    with open(lib_path[:-3] + ".log") as f:
-        print("".join(f"  ptxas: {ln}" for ln in f if "Used" in ln
-                      or "spill" in ln or "smem" in ln), end="")
+    for name, secs in done:
+        lib_path = _build.library_path(name, KERNELS[name])
+        print(f"  {osp.relpath(lib_path, ROOT)}: {secs:.2f} s")
+        with open(lib_path[:-3] + ".log") as f:
+            print("".join(f"  ptxas: {ln}" for ln in f if "Used" in ln
+                          or "spill" in ln or "smem" in ln), end="")
 
-    # -- phase 2: K1 against its plain version at the main-path shape --------
+
+def check_k1(dev, card):
+    """K1 against its plain version at the main-path shape."""
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+
     g = torch.Generator(device=dev).manual_seed(0)
     fmap = torch.randn((N_IMG, 30, 40, 512), generator=g, device=dev)
     assign_w = torch.randn((512, 64), generator=g, device=dev) * 2
@@ -177,15 +215,249 @@ def main():
     print(f"timing K1 (16,30,40,512) f32 postprocess: kernel {k1_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms | bf16: kernel {k1_bf16_ms:.4f} ms, "
           f"plain {plain_bf16_ms:.4f} ms [{card}]")
-    del fmap, fb
+    return {"max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms}
+
+
+def check_k2(dev, card):
+    """K2 against its plain version: m=64, ksub=256, 1 and 16 queries, over
+    1M codes, a ragged N and the served gallery's 100k, f32 and bf16 LUT."""
+    from openibl_tpu_torch.ops import pq_kernel as pk
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    codes_all = torch.randint(0, 256, (K2_ROWS[0], PQ_M), generator=g,
+                              device=dev, dtype=torch.uint8)
+    luts = {q: torch.rand((PQ_M, q, 256), generator=g, device=dev) * 0.1
+            for q in (1, 16)}
+    max_err = 0.0
+    for n in K2_ROWS:
+        codes = codes_all[:n]
+        for q, lut in luts.items():
+            for precise in (True, False):
+                out = pk.adc_tile(lut, codes, precise=precise)
+                ref = pk.adc_tile_plain(lut, codes, precise=precise)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                max_err = max(max_err, err)
+                torch.testing.assert_close(out, ref, rtol=K2_TOL, atol=K2_TOL)
+                check(True, f"K2 == plain scorer, Q={q} N={n} m={PQ_M} "
+                            f"ksub=256 precise={precise}, max_abs_err="
+                            f"{err:.3g} (rtol/atol {K2_TOL})")
+    times = {}
+    for n in (K2_ROWS[0], GALLERY):
+        codes = codes_all[:n]
+        for q, lut in luts.items():
+            for precise in (False, True):
+                k = cuda_ms(lambda: pk.adc_tile(lut, codes, precise))
+                p = cuda_ms(lambda: pk.adc_tile_plain(lut, codes, precise))
+                times[n, q, precise] = (k, p)
+                print(f"timing K2 Q={q} N={n} "
+                      f"{'f32' if precise else 'bf16'} LUT: kernel "
+                      f"{k:.4f} ms, plain {p:.4f} ms "
+                      f"({n * PQ_M / k / 1e6:.1f} GB/s of codes) [{card}]")
+    # the served PQ path's launch: one query, the 100k-row gallery, bf16 LUT
+    k2_ms, plain_ms = times[GALLERY, 1, False]
+    return {"max_abs_err": max_err, "ms": k2_ms, "plain_ms": plain_ms}
+
+
+def build_indexes(gallery, desc, dev, card):
+    """(b) The index family over the device gallery, built on the card, and
+    pq_search through K2 against pq_search through the plain scorer (the
+    same call on CPU copies)."""
+    from openibl_tpu_torch.ops.ivf import build_ivf
+    from openibl_tpu_torch.ops.pq import build_ivfpq, build_pq, pq_search
+
+    built = {}
+    for name, fn in (
+            ("pq", lambda: build_pq(gallery, m=PQ_M)),
+            # OPQ at D=4096: one D x D SVD per outer iteration, so one
+            # iteration keeps the build to seconds
+            ("opq", lambda: build_pq(gallery, m=PQ_M, opq_iters=1)),
+            ("ivf", lambda: build_ivf(gallery, nlist=NLIST)),
+            ("ivfpq", lambda: build_ivfpq(gallery, nlist=NLIST, m=PQ_M))):
+        t0 = time.perf_counter()
+        built[name] = fn()
+        torch.cuda.synchronize()
+        print(f"phase index build {name}: {time.perf_counter() - t0:.2f} s, "
+              + ", ".join(f"{k} {v.shape}" for k, v in built[name].items())
+              + f" [{card}]")
+    pq, opq, ivf, ivfpq = (built[k] for k in ("pq", "opq", "ivf", "ivfpq"))
+    for p in (pq, opq):
+        check(p["pq_codes"].shape == (GALLERY, PQ_M)
+              and p["pq_codes"].dtype == np.uint8
+              and p["pq_codebooks"].shape == (PQ_M, 256, DIM // PQ_M),
+              f"PQ payload: codes {p['pq_codes'].shape} uint8, codebooks "
+              f"{p['pq_codebooks'].shape}")
+    rot = opq["pq_rotation"]
+    r64 = rot.astype(np.float64)
+    orth = float(np.abs(r64 @ r64.T - np.eye(DIM)).max())
+    check(orth < 1e-3,
+          f"OPQ rotation is orthogonal: |R R^T - I| = {orth:.3g} (< 1e-3)")
+    for name, lists in (("ivf", ivf["lists"]), ("ivfpq", ivfpq["ivf_lists"])):
+        check(lists.shape[0] == NLIST
+              and np.array_equal(np.sort(lists[lists >= 0]),
+                                 np.arange(GALLERY)),
+              f"{name}: {NLIST} cells x {lists.shape[1]} partition the "
+              f"{GALLERY} rows")
+    print(f"  IVFADC cells equal build_ivf's: "
+          f"{np.array_equal(ivf['lists'], ivfpq['ivf_lists'])}")
+    # K2 vs the plain scorer through pq_search. The two LUTs come from f32
+    # products in another order (~1e-6 apart): 1e-5 with the f32 LUT; with
+    # the bf16 LUT an entry may round to the neighbouring bf16 value (one
+    # ulp, ~2.4e-4 at ~0.03), so 1e-3 there
+    for name, p, r in (("PQ", pq, None), ("OPQ", opq, rot)):
+        codes_dev = torch.from_numpy(p["pq_codes"]).to(dev)
+        codes_cpu = torch.from_numpy(p["pq_codes"])
+        for precise, tie in ((True, 1e-5), (False, 1e-3)):
+            d_k2, i_k2 = pq_search(desc, codes_dev, p["pq_codebooks"], k=10,
+                                   precise=precise, rotation=r)
+            d_pl, i_pl = pq_search(desc.cpu(), codes_cpu, p["pq_codebooks"],
+                                   k=10, precise=precise, rotation=r)
+            check(*same_top10_up_to_cut(
+                d_k2, i_k2, d_pl, i_pl,
+                f"{name} pq_search K2 vs plain scorer, {len(desc)} queries, "
+                f"precise={precise}", tie))
+    return built
+
+
+def serve_modes(index, built, weights, images, rows, dev, card, serve_torch):
+    """(c) Each served mode of the index family through a RetrievalService,
+    PQ also through the HTTP handler; the kernels' counts cover its queries
+    only. Returns (per-mode results, K2 launches over the served modes)."""
+    from http.server import ThreadingHTTPServer
+
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.ops import pq_kernel as pk
+    from openibl_tpu_torch.serving import RetrievalService
+
+    paths, desc = index["paths"], index["descriptors"]
+    pq, opq, ivf, ivfpq = (built[k] for k in ("pq", "opq", "ivf", "ivfpq"))
+    # name: (index, service options, top-n the planted row must reach,
+    #        whether the path runs K2)
+    modes = {
+        "pq": ({"paths": paths, **opq}, {"use_pq": True}, 10, True),
+        "ivfadc": ({"paths": paths, **ivfpq},
+                   {"use_pq": True, "ivf_nprobe": NPROBE}, 10, False),
+        "pq_rerank": ({"descriptors": desc, "paths": paths, **pq},
+                      {"pq_rerank": SHORTLIST}, 1, True),
+        "ivf": ({"descriptors": desc, "paths": paths,
+                 "ivf_centroids": ivf["centroids"],
+                 "ivf_lists": ivf["lists"]},
+                {"ivf_nprobe": NPROBE}, 1, False),
+    }
+    out, k2_launches = {}, 0
+    for name, (idx, kw, gate, runs_k2) in modes.items():
+        t0 = time.perf_counter()
+        service = RetrievalService(idx, weights=weights, height=H, width=W,
+                                   device=dev, **kw)
+        service.warmup()
+        torch.cuda.synchronize()
+        print(f"phase serve {name}: {kw}, built and warmed in "
+              f"{time.perf_counter() - t0:.2f} s over {service.index_size} "
+              f"rows")
+        nk.netvlad_fused.launches = pk.adc_tile.launches = 0  # path starts
+        if name == "pq":
+            server = ThreadingHTTPServer(("127.0.0.1", 0),
+                                         serve_torch.make_handler(service))
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            try:
+                base = f"http://127.0.0.1:{server.server_address[1]}"
+                for j in range(2):
+                    buf = io.BytesIO()
+                    Image.fromarray(images[j]).save(buf, format="PNG")
+                    req = urllib.request.Request(base + "/query?topk=10",
+                                                 data=buf.getvalue(),
+                                                 method="POST")
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        got = [m["index"] for m in
+                               json.loads(r.read())["matches"]]
+                    row = int(rows[j])
+                    rank = got.index(row) + 1 if row in got else None
+                    check(rank is not None, f"HTTP /query pq image {j}: "
+                                            f"planted row {row} at rank {rank}")
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=60)
+        results = service.query(list(images), topk=10)
+        k1, k2 = nk.netvlad_fused.launches, pk.adc_tile.launches  # path ends
+        ids = [[m["index"] for m in r] for r in results]
+        recall = [float(np.mean([int(rows[j]) in ids[j][:n]
+                                 for j in range(len(ids))]))
+                  for n in (1, 5, 10)]
+        print(f"  {name}: Recall@1/5/10 = {recall} over {len(ids)} planted "
+              f"queries; launches K1 {k1}, K2 {k2}")
+        check(all(len(r) == 10 and [m["rank"] for m in r] == list(
+                  range(1, 11)) for r in results),
+              f"{name}: 10 matches per query, ranks 1..10")
+        check(recall[(1, 5, 10).index(gate)] == 1.0,
+              f"{name}: the planted row is in every query's top-{gate}")
+        check(k1 > 0, f"{name}: K1 launched {k1} times on the served path")
+        if runs_k2:
+            check(k2 > 0, f"{name}: K2 launched {k2} times on the served "
+                          f"path")
+            k2_launches += k2
+        out[name] = {"recall": recall, "p50_ms": p50_query_ms(service,
+                                                              images)}
+        del service
+        torch.cuda.empty_cache()
+    return out, k2_launches
+
+
+def time_searches(gallery, desc, built, dev, card):
+    """(d) pq_search (K2) against the exact topk_nearest, per call, at
+    batch 1 and 16 over the 100k gallery."""
+    from openibl_tpu_torch.ops.distance import topk_nearest
+    from openibl_tpu_torch.ops.pq import pq_search
+
+    codes = torch.from_numpy(built["pq"]["pq_codes"]).to(dev)
+    cb = torch.from_numpy(built["pq"]["pq_codebooks"]).to(dev)
+    for b in (1, 16):
+        q = desc[:b].contiguous()
+        pq_ms = cuda_ms(lambda: pq_search(q, codes, cb, k=10))
+        ex_ms = cuda_ms(lambda: topk_nearest(q, gallery, k=10))
+        print(f"timing search batch {b}, top-10 of {GALLERY}: pq_search "
+              f"(m={PQ_M}, K2) {pq_ms:.4f} ms, exact topk_nearest (f32) "
+              f"{ex_ms:.4f} ms, per call, CUDA events [{card}]")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device "
+                         "(torch.cuda.is_available() is False)")
+    sys.path.insert(0, ROOT)
+    run(torch.device("cuda"))
+
+
+def run(dev):
+    from openibl_tpu_torch.engine.evaluator import evaluate_descriptors
+    from openibl_tpu_torch.hub import vgg16_netvlad
+    from openibl_tpu_torch.models.netvlad import netvlad_init_from_clusters
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.ops.distance import topk_nearest
+    from openibl_tpu_torch.serving import RetrievalService
+
+    card = card_line()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+
+    # -- phase 1: build both kernels; phase 2: each against its plain ------
+    build_kernels()
+    k1 = check_k1(dev, card)
+    k2 = check_k2(dev, card)
 
     # -- phase 3: the model, NetVLAD bootstrapped from its conv5 features ----
     rng = np.random.RandomState(0)
     model = vgg16_netvlad(None, device=dev)
     check(model.net_vlad.fused and model.net_vlad.num_clusters == 64
           and model.pca_dim == DIM, "hub model: fused head, K=64, PCA 4096")
+    boot = torch.from_numpy(scenes(rng, BOOT_IMGS)).to(dev)
     with torch.inference_mode():
-        _, f5 = model.base(torch.from_numpy(scenes(rng, 4)).to(dev))
+        _, f5 = model.base(boot[:4])
     feats = f5.reshape(-1, 512).float().cpu().numpy()
     feats /= np.linalg.norm(feats, axis=1, keepdims=True)
     clusters = feats[rng.choice(len(feats), 64, replace=False)]
@@ -193,6 +465,16 @@ def main():
     with torch.no_grad():
         model.net_vlad.assign_w.copy_(init["assign_w"])
         model.net_vlad.centroids.copy_(init["centroids"])
+    # PCA centring: the bias maps the mean VLAD of the bootstrap images to
+    # 0 (b = -mean·w, as a PCA fit sets it). Without it the random
+    # projection keeps the VLADs' shared part, and all descriptors lie
+    # closer together than PQ at m=64 can resolve
+    with torch.inference_mode():
+        vlad = torch.cat([model.net_vlad.descriptor(model.base(
+            boot[s:s + N_IMG])[1]) for s in range(0, BOOT_IMGS, N_IMG)])
+        shift = -(vlad.mean(dim=0) @ model.pca_layer.w)
+    with torch.no_grad():
+        model.pca_layer.b.copy_(shift)
 
     images = scenes(rng, PLANTED)
     imgs_dev = torch.from_numpy(images).to(dev)
@@ -210,6 +492,10 @@ def main():
     check(bool(((norms - 1).abs() < 1e-4).all()), "descriptors unit-norm")
     cos = float((desc_k1 * desc_plain).sum(dim=1).min())
     check(cos >= 0.99999, f"K1 vs plain head descriptors: min cosine {cos:.8f}")
+    d2 = torch.cdist(desc_k1, desc_k1).square()
+    d2 = d2[~torch.eye(PLANTED, dtype=torch.bool, device=dev)]
+    print(f"  planted descriptors: pairwise sq-dist min {float(d2.min()):.4f}, "
+          f"median {float(d2.median()):.4f}")
 
     # -- phase 4: gallery on the device, planted rows, retrieval checks -------
     gg = torch.Generator(device=dev).manual_seed(1)
@@ -232,88 +518,101 @@ def main():
     check(recalls[0] == 1.0,
           f"evaluate_descriptors Recall@1/5/10 = {list(recalls)}")
 
-    # -- phase 5: the served path: service + HTTP ------------------------------
+    # -- phase 5 (b): the index family, built on the card --------------------
+    built = build_indexes(gallery, desc_k1, dev, card)
+
     index = {"descriptors": gallery.cpu().numpy(),
              "paths": np.array([f"g{i:06d}.jpg" for i in range(GALLERY)])}
-    del gallery
-    with tempfile.TemporaryDirectory() as tmp:
-        weights = osp.join(tmp, "vgg16_netvlad_seeded.pth")
-        torch.save(reference_state(model), weights)
-        t0 = time.perf_counter()
-        service = RetrievalService(index, weights=weights, height=H,
-                                   width=W, device=dev)
-    service.warmup()
-    torch.cuda.synchronize()
-    print(f"phase service: built and warmed in {time.perf_counter() - t0:.2f}"
-          f" s over {service.index_size} rows")
     spec = importlib.util.spec_from_file_location(
         "serve_torch", osp.join(ROOT, "examples", "serve_torch.py"))
     serve_torch = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(serve_torch)
     from http.server import ThreadingHTTPServer
 
-    server = ThreadingHTTPServer(("127.0.0.1", 0),
-                                 serve_torch.make_handler(service))
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    nk.netvlad_fused.launches = 0  # the main path's run starts here
-    try:
-        base = f"http://127.0.0.1:{server.server_address[1]}"
-        with urllib.request.urlopen(base + "/healthz", timeout=120) as r:
-            health = json.loads(r.read())
-        check(health == {"ok": True, "index_size": GALLERY},
-              f"/healthz {health}")
-        for j in range(4):
-            buf = io.BytesIO()
-            Image.fromarray(images[j]).save(buf, format="PNG")
-            req = urllib.request.Request(base + "/query?topk=5",
-                                         data=buf.getvalue(), method="POST")
-            with urllib.request.urlopen(req, timeout=120) as r:
-                matches = json.loads(r.read())["matches"]
-            check(matches[0]["index"] == int(rows[j])
-                  and matches[0]["path"] == f"g{int(rows[j]):06d}.jpg",
-                  f"HTTP /query image {j}: top-1 = planted row "
-                  f"{matches[0]['index']}, sq_dist "
-                  f"{matches[0]['sq_dist']:.3g}")
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=60)
-    results = service.query(list(images), topk=10)
-    launches = nk.netvlad_fused.launches  # the main path's run ends here
-    check([r[0]["index"] for r in results] == rows.tolist(),
-          f"service.query on {PLANTED} images: every top-1 is planted")
-    check(launches > 0, f"K1 launched {launches} times on the served path")
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = osp.join(tmp, "vgg16_netvlad_seeded.pth")
+        torch.save(reference_state(model), weights)
 
-    # -- phase 6: timings -------------------------------------------------------
-    batch = imgs_dev[:N_IMG]
-    with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
-            model.base.compute_dtype = dtype
-            ms = cuda_ms(lambda: model(batch), reps=10, warmup=2)
-            print(f"timing extraction {H}x{W} batch {N_IMG} "
-                  f"{str(dtype)[6:]}: {N_IMG / ms * 1e3:.2f} img/s "
-                  f"({ms:.3f} ms/batch) [{card}]")
-        model.base.compute_dtype = torch.float32
-    lat = []
-    for j in range(30):
+        # -- phase 6: the exact served path: service + HTTP ------------------
         t0 = time.perf_counter()
-        service.query([images[j % PLANTED]], topk=10)
-        lat.append((time.perf_counter() - t0) * 1e3)
-    print(f"timing service.query batch 1, top-10 of {GALLERY}: p50 "
-          f"{statistics.median(lat[5:]):.3f} ms (host clock, 25 queries) "
-          f"[{card}]")
+        service = RetrievalService(index, weights=weights, height=H,
+                                   width=W, device=dev)
+        service.warmup()
+        torch.cuda.synchronize()
+        print(f"phase service: built and warmed in "
+              f"{time.perf_counter() - t0:.2f} s over {service.index_size} "
+              f"rows")
+        server = ThreadingHTTPServer(("127.0.0.1", 0),
+                                     serve_torch.make_handler(service))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        nk.netvlad_fused.launches = 0  # the main path's run starts here
+        try:
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            with urllib.request.urlopen(base + "/healthz", timeout=120) as r:
+                health = json.loads(r.read())
+            check(health == {"ok": True, "index_size": GALLERY},
+                  f"/healthz {health}")
+            for j in range(4):
+                buf = io.BytesIO()
+                Image.fromarray(images[j]).save(buf, format="PNG")
+                req = urllib.request.Request(base + "/query?topk=5",
+                                             data=buf.getvalue(),
+                                             method="POST")
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    matches = json.loads(r.read())["matches"]
+                check(matches[0]["index"] == int(rows[j])
+                      and matches[0]["path"] == f"g{int(rows[j]):06d}.jpg",
+                      f"HTTP /query image {j}: top-1 = planted row "
+                      f"{matches[0]['index']}, sq_dist "
+                      f"{matches[0]['sq_dist']:.3g}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        results = service.query(list(images), topk=10)
+        k1_launches = nk.netvlad_fused.launches  # the main path's run ends
+        check([r[0]["index"] for r in results] == rows.tolist(),
+              f"service.query on {PLANTED} images: every top-1 is planted")
+        check(k1_launches > 0,
+              f"K1 launched {k1_launches} times on the served path")
 
-    print(json.dumps({"kernels": [{
-        "name": "netvlad_fused",
-        "route": "cuda",
-        "source": "openibl_tpu_torch/csrc/netvlad.cu",
-        "replaces": "openibl_tpu/ops/netvlad_kernel.py:74",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        # -- phase 7: timings of extraction and the exact service ------------
+        batch = imgs_dev[:N_IMG]
+        with torch.inference_mode():
+            for dtype in (torch.float32, torch.bfloat16):
+                model.base.compute_dtype = dtype
+                ms = cuda_ms(lambda: model(batch), reps=10, warmup=2)
+                print(f"timing extraction {H}x{W} batch {N_IMG} "
+                      f"{str(dtype)[6:]}: {N_IMG / ms * 1e3:.2f} img/s "
+                      f"({ms:.3f} ms/batch) [{card}]")
+            model.base.compute_dtype = torch.float32
+        exact_p50 = p50_query_ms(service, images)
+        print(f"timing service.query batch 1, top-10 of {GALLERY}: p50 "
+              f"{exact_p50:.3f} ms (host clock, 25 queries) [{card}]")
+        del service, model
+        torch.cuda.empty_cache()
+
+        # -- phase 8 (c): the served modes of the index family ---------------
+        modes, k2_launches = serve_modes(index, built, weights, images, rows,
+                                         dev, card, serve_torch)
+
+    # -- phase 9 (d): timings of the served modes and the searches ----------
+    for mode, r in {"exact": {"p50_ms": exact_p50}, **modes}.items():
+        print(f"timing service.query {mode} batch 1, top-10 of {GALLERY}: "
+              f"p50 {r['p50_ms']:.3f} ms (host clock, 25 queries) [{card}]")
+    time_searches(gallery, desc_k1, built, dev, card)
+
+    print(json.dumps({"kernels": [
+        {"name": "netvlad_fused", "route": "cuda",
+         "source": "openibl_tpu_torch/csrc/netvlad.cu",
+         "replaces": "openibl_tpu/ops/netvlad_kernel.py:74",
+         "launches": k1_launches, **k1},
+        {"name": "pq_adc", "route": "cuda",
+         "source": "openibl_tpu_torch/csrc/pq_adc.cu",
+         "replaces": "openibl_tpu/ops/pq_kernel.py:84",
+         "launches": k2_launches, **k2},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -36,6 +36,19 @@ def main():
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--int8", action="store_true",
                    help="quantize a float index to int8 at load")
+    p.add_argument("--ivf-nprobe", type=int, default=0,
+                   help=">0 probes only that many IVF cells per query "
+                        "(approximate; index built with --ivf-nlist)")
+    p.add_argument("--pq", action="store_true",
+                   help="serve from the index's product-quantized codes "
+                        "(build --pq-m; exhaustive ADC, kernel K2 on CUDA). "
+                        "Implied for --pq-only indexes; with --ivf-nprobe "
+                        "IVFADC (residual codes, probed cell by cell)")
+    p.add_argument("--pq-rerank", type=int, default=0,
+                   help=">0 = ADC shortlist of this size over the PQ codes, "
+                        "re-ranked exactly against the full-width "
+                        "descriptors (index built with --pq-m, without "
+                        "--pq-only)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device for the model and the index")
     args = p.parse_args()
@@ -45,7 +58,9 @@ def main():
     service = RetrievalService(args.index, weights=args.weights,
                                height=args.height, width=args.width,
                                quantize_int8=args.int8,
+                               ivf_nprobe=args.ivf_nprobe,
                                pca_params=args.pca_params,
+                               use_pq=args.pq, pq_rerank=args.pq_rerank,
                                device=args.device)
     print(f"warming {len(service.buckets)} batch buckets over "
           f"{service.index_size}-image index on {service.device} ...")

@@ -22,7 +22,8 @@ BUILD_DIR = osp.join(osp.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()  # one nvcc run at a time in this process
+_locks = {}  # one lock per library: different libraries build at once
+_locks_guard = threading.Lock()
 
 
 def find_nvcc():
@@ -49,9 +50,13 @@ def library_path(name, sources):
 
 
 def load_library(name, sources):
-    """Build (if needed) and load ``lib<name>`` from csrc/ ``sources``."""
+    """Build (if needed) and load ``lib<name>`` from csrc/ ``sources``.
+    Safe to call from several threads: calls for different libraries run
+    their nvcc processes in parallel, calls for one library build once."""
     path = library_path(name, sources)
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(path, threading.Lock())
+    with lock:
         if not osp.isfile(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"

@@ -2,10 +2,13 @@
 
   python3 chip_smoke.py
 
-Builds the port's two CUDA kernels from this checkout, one nvcc each, in
-parallel: the fused NetVLAD head (K1, csrc/netvlad.cu) and the PQ ADC tile
-scorer (K2, csrc/pq_adc.cu). Holds each to its plain PyTorch version on the
-card at the main path's shapes, then drives the serving path at full width:
+Builds the port's three CUDA libraries from this checkout, one nvcc each,
+in parallel: the fused NetVLAD head (K1, csrc/netvlad.cu), the PQ ADC tile
+scorer (K2, csrc/pq_adc.cu) and the six kernels of the Mosaic layout probes
+(P1-P7, csrc/mosaic_probe.cu). Holds each to its plain PyTorch version on
+the card at the main path's shapes (the probes at the TPU script's own toy
+sizes, each row driven through the port's probe tool as its own path),
+then drives the serving path at full width:
 VGG16 + NetVLAD (K=64) + PCA 32768→4096 at 480x640, a RetrievalService over
 a 100,000 x 4096 f32 gallery with 32 planted rows, queries through
 examples/serve_torch.py's HTTP handler on localhost, and Recall@1 over the
@@ -22,10 +25,15 @@ a PCA fit does, because the raw random init maps every image to nearly the
 same descriptor. Each served
 path runs with the kernels' launch counts set to 0 just before it and read
 just after. Prints timing lines (CUDA events, or the host clock for
-service.query) with the card's name and power limit, one JSON line on the
-kernels, and as its last line {"ok": true, "device": {...}}. Any failed
-check raises: the exit code is then non-zero and the last line is not
-printed. Needs CUDA; imports no jax.
+service.query) with the card's name and power limit, each kernel's time
+per call beside its bound (the larger of its bytes over 3.35 TB/s and its
+f32 operations over 67 TFLOP/s, the H100 SXM data sheet's peaks) and,
+where one PyTorch call computes the same function, that call's time; then,
+after every timed phase, each kernel's device time (torch.profiler); one
+JSON line on the kernels, and as its last line {"ok": true, "device":
+{...}}. Any failed check raises: the
+exit code is then non-zero and the last line is not printed. Needs CUDA;
+imports no jax.
 """
 
 import importlib.util
@@ -55,7 +63,9 @@ RTOL, ATOL = 1e-4, 1e-5  # K1: both sides upcast the same values to f32
 K2_TOL = 1e-5
 K2_ROWS = (1_000_000, 999_983, GALLERY)  # 1M codes, a ragged N, main path
 PQ_M, NLIST, NPROBE, SHORTLIST = 64, 256, 16, 256
-KERNELS = {"netvlad": ["netvlad.cu"], "pq_adc": ["pq_adc.cu"]}
+KERNELS = {"netvlad": ["netvlad.cu"], "pq_adc": ["pq_adc.cu"],
+           "mosaic_probe": ["mosaic_probe.cu"]}
+HBM_BYTES_PER_MS, F32_OPS_PER_MS = 3.35e9, 67e9  # H100 SXM, 700 W
 
 
 def check(cond, what):
@@ -86,6 +96,38 @@ def cuda_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=20):
+    """Device time of one call of ``fn``: the time of the CUDA kernels in a
+    torch.profiler trace of ``reps`` calls, over ``reps``; None if the trace
+    holds no device time. Unlike cuda_ms it leaves out the host work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    return us / reps / 1e3 if us > 0 else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4g} ms"
+
+
+def bound(nbytes, ops):
+    """The least time (ms) the card could take to move ``nbytes`` and do
+    ``ops`` f32 operations on CUDA cores, and which of the two sets it."""
+    b, o = nbytes / HBM_BYTES_PER_MS, ops / F32_OPS_PER_MS
+    return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o else
+            "operations"}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def p50_query_ms(service, images, n=30, warm=5):
@@ -203,8 +245,10 @@ def check_k1(dev, card):
             check(True, f"K1 == plain head, {str(dtype)[6:]} fmap "
                         f"{tuple(x.shape)}, postprocess={post}, "
                         f"max_abs_err={err:.3g} (rtol {RTOL}, atol {ATOL})")
-    k1_ms = cuda_ms(lambda: nk.netvlad_fused(fmap, assign_w, cent,
-                                             postprocess=True))
+    def k1():
+        return nk.netvlad_fused(fmap, assign_w, cent, postprocess=True)
+
+    k1_ms = cuda_ms(k1)
     plain_ms = cuda_ms(lambda: nk.netvlad_plain(fmap, assign_w, cent,
                                                 postprocess=True))
     fb = fmap.to(torch.bfloat16)
@@ -212,10 +256,19 @@ def check_k1(dev, card):
                                                   postprocess=True))
     plain_bf16_ms = cuda_ms(lambda: nk.netvlad_plain(fb, assign_w, cent,
                                                      postprocess=True))
+    # f32 with postprocess: each of the two products (logits x·W and the
+    # aggregation aᵀx) is N·HW·C·K multiply-adds; fmap, weights and the
+    # (N, K, C) output each cross HBM once
+    n, hw, c, k = N_IMG, 30 * 40, 512, 64
+    b = bound(nbytes(fmap, assign_w, cent) + n * k * c * 4,
+              2 * 2 * n * hw * c * k)
     print(f"timing K1 (16,30,40,512) f32 postprocess: kernel {k1_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms | bf16: kernel {k1_bf16_ms:.4f} ms, "
-          f"plain {plain_bf16_ms:.4f} ms [{card}]")
-    return {"max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms}
+          f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}) | bf16: kernel {k1_bf16_ms:.4f} ms, plain "
+          f"{plain_bf16_ms:.4f} ms [{card}]")
+    entry = {"max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms, **b,
+             "library_ms": None}
+    return entry, ("K1 (16,30,40,512) f32 postprocess", k1, entry)
 
 
 def check_k2(dev, card):
@@ -254,9 +307,132 @@ def check_k2(dev, card):
                       f"{'f32' if precise else 'bf16'} LUT: kernel "
                       f"{k:.4f} ms, plain {p:.4f} ms "
                       f"({n * PQ_M / k / 1e6:.1f} GB/s of codes) [{card}]")
-    # the served PQ path's launch: one query, the 100k-row gallery, bf16 LUT
+    # the served PQ path's launch: one query, the 100k-row gallery, bf16 LUT;
+    # codes and LUT read once, (Q, N) f32 written once, m adds per row
     k2_ms, plain_ms = times[GALLERY, 1, False]
-    return {"max_abs_err": max_err, "ms": k2_ms, "plain_ms": plain_ms}
+    b = bound(nbytes(codes_all[:GALLERY], luts[1]) + GALLERY * 4,
+              GALLERY * PQ_M)
+    b16 = bound(nbytes(codes_all, luts[16]) + 16 * K2_ROWS[0] * 4,
+                16 * K2_ROWS[0] * PQ_M)
+    lut1, codes = luts[1], codes_all[:GALLERY]
+    print(f"bound K2 Q=1 N={GALLERY}: {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}); Q=16 N={K2_ROWS[0]}: {b16['bound_ms']:.4f} ms "
+          f"({b16['bound_by']}) [{card}]")
+    entry = {"max_abs_err": max_err, "ms": k2_ms, "plain_ms": plain_ms, **b,
+             "library_ms": None}
+    return entry, (f"K2 Q=1 N={GALLERY} bf16 LUT",
+                   lambda: pk.adc_tile(lut1, codes), entry)
+
+
+def probe_library_call(key, args, kw):
+    """One PyTorch call computing the probe's function, as a yardstick
+    (the port never calls it): (description, zero-argument callable)."""
+    if key in ("P1", "P2"):
+        x, width = args[0], kw["width"]
+        return "torch.flip of the (R, pieces, width) view", (
+            lambda: torch.flip(x.view(x.shape[0], -1, width), [1]))
+    if key == "P3":
+        x, ones = args[0][None, None], args[0].new_ones((1, 1, 3, 1))
+        return "F.conv2d with a (3, 1) kernel of ones", (
+            lambda: torch.nn.functional.conv2d(x, ones))
+    if key == "P4":
+        return "torch.maximum on strided views", (
+            lambda: torch.maximum(args[0][0::2], args[0][1::2]))
+    if key == "P5":
+        return "torch.matmul", lambda: torch.matmul(*args)
+    idx = args[1].long()
+    if key == "P6":
+        return "torch.take_along_dim", (
+            lambda: torch.take_along_dim(args[0], idx, dim=1))
+    return "lut[:, idx]", lambda: args[0][:, idx[0]]
+
+
+def probe_ops(key, args, out):
+    """The f32 operations a probe's function needs on these inputs."""
+    if key == "P3":
+        return 2 * out.numel()  # two adds per output
+    if key == "P4":
+        return out.numel()  # one max per output
+    if key == "P5":
+        return 2 * args[0].numel() * args[1].shape[1]  # M·K·N FMAs
+    # P1, P2 and P6 move data only. P7 computes the gather lut[:, idx]: its
+    # one-hot product is the kernel's way there, not work the function needs
+    return 0
+
+
+def check_probes(dev, card):
+    """(e) The Mosaic layout probes P1-P7: each row run through the port's
+    probe tool on the card as its own path (all probe counts 0 just before,
+    its count read just after), the tool's command once, then each kernel
+    against its plain version on the same inputs on the card, timed beside
+    its plain version, its bound and one library call. Returns their
+    entries of the kernels line and their calls for device_times."""
+    from openibl_tpu_torch.tools import mosaic_probe as mp
+
+    wrappers = {p.kernel for p in mp.PROBES}
+    out = {}
+    for p in mp.PROBES:
+        for w in wrappers:
+            w.launches = 0  # the probe's path starts
+        name, status, _ = p.run(dev)
+        launches = p.kernel.launches  # the probe's path ends
+        check(status == "OK" and launches >= 1,
+              f"{p.key} '{name}' through the probe tool: {status}, "
+              f"{launches} launch(es)")
+        out[p.key] = {"name": f"mosaic_probe {p.key} {name}", "route": "cuda",
+                      "source": "openibl_tpu_torch/csrc/mosaic_probe.cu",
+                      "replaces": f"scripts/mosaic_probe.py:{p.site}",
+                      "launches": launches}
+    check(mp.main(["--device", "cuda"]) == 0,
+          "python -m openibl_tpu_torch.tools.mosaic_probe: every row OK")
+    device_calls = []
+    for p in mp.PROBES:
+        args = p.tensors(dev)
+        got = p.kernel(*args, **p.kwargs)
+        ref = p.plain(*args, **p.kwargs)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        check(p.agrees(got, ref),
+              f"{p.key} kernel == plain "
+              + ("bit for bit" if p.atol == 0 else
+                 f"within atol {p.atol} (the script's; f32 sums in another "
+                 f"order)") + f", max_abs_err={err:.3g}")
+        what, lib = probe_library_call(p.key, args, p.kwargs)
+        lib_same = torch.allclose(lib().reshape(got.shape), got, rtol=1e-5,
+                                  atol=1e-4)
+
+        def kernel(p=p, args=args):
+            return p.kernel(*args, **p.kwargs)
+
+        k_ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(lambda: p.plain(*args, **p.kwargs))
+        lib_ms = cuda_ms(lib)
+        b = bound(nbytes(*args, got), probe_ops(p.key, args, got))
+        print(f"timing {p.key} '{p.name}' "
+              f"{[tuple(a.shape) for a in args]}: kernel {k_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, {what} {lib_ms:.4f} ms (same "
+              f"values: {lib_same}), bound {b['bound_ms']:.3g} ms "
+              f"({b['bound_by']}); launch-bound toy size [{card}]")
+        out[p.key].update(max_abs_err=err, ms=k_ms, plain_ms=plain_ms, **b,
+                          library_ms=lib_ms)
+        device_calls.append((f"{p.key} '{p.name}'", kernel, out[p.key]))
+    return list(out.values()), device_calls
+
+
+def device_times(calls, card):
+    """Each kernel's device time (torch.profiler) beside its per-call time
+    and bound. Taken after every timed phase: a profiler session may leave
+    host cost on the launches that follow it."""
+    # the first profiler session of a process recorded no kernel on the
+    # H100: one throwaway session first
+    device_ms(lambda: torch.ones(1, device="cuda").add_(1), reps=1)
+    for what, fn, entry in calls:
+        ms = device_ms(fn)
+        share = "" if ms is None else \
+            f", {entry['bound_ms'] / ms:.3%} of bound on the device"
+        print(f"device {what}: {fmt_ms(ms)} (profiler){share}; per call "
+              f"{entry['ms']:.4f} ms, bound {entry['bound_ms']:.3g} ms "
+              f"({entry['bound_by']}) [{card}]")
 
 
 def build_indexes(gallery, desc, dev, card):
@@ -445,10 +621,11 @@ def run(dev):
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
-    # -- phase 1: build both kernels; phase 2: each against its plain ------
+    # -- phase 1: build the kernels; phase 2: each against its plain -------
     build_kernels()
-    k1 = check_k1(dev, card)
-    k2 = check_k2(dev, card)
+    k1, k1_call = check_k1(dev, card)
+    k2, k2_call = check_k2(dev, card)
+    probes, probe_calls = check_probes(dev, card)
 
     # -- phase 3: the model, NetVLAD bootstrapped from its conv5 features ----
     rng = np.random.RandomState(0)
@@ -603,6 +780,9 @@ def run(dev):
               f"p50 {r['p50_ms']:.3f} ms (host clock, 25 queries) [{card}]")
     time_searches(gallery, desc_k1, built, dev, card)
 
+    # -- phase 10: each kernel's device time, after every timed phase ------
+    device_times([k1_call, k2_call, *probe_calls], card)
+
     print(json.dumps({"kernels": [
         {"name": "netvlad_fused", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/netvlad.cu",
@@ -612,6 +792,7 @@ def run(dev):
          "source": "openibl_tpu_torch/csrc/pq_adc.cu",
          "replaces": "openibl_tpu/ops/pq_kernel.py:84",
          "launches": k2_launches, **k2},
+        *probes,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -16,6 +16,7 @@ import torch
 from openibl_tpu_torch import models
 from openibl_tpu_torch.data.transforms import TestTransform
 from openibl_tpu_torch.models import convert
+from openibl_tpu_torch.utils import resolve_device
 
 
 def _require_loaded(model, state, path):
@@ -63,8 +64,9 @@ def _load_npz(model, path, pca_params):
 
 
 def vgg16_netvlad(pretrained=None, num_clusters=64, pca_dim=4096,
-                  pca_params=None, device="cpu"):
-    """Build the inference model, in eval mode on ``device``.
+                  pca_params=None, device="cuda"):
+    """Build the inference model, in eval mode on ``device`` (the card by
+    default; without one this raises unless ``device="cpu"``).
 
     Args:
       pretrained: a released torch .pth/.pth.tar state dict (loaded
@@ -76,7 +78,7 @@ def vgg16_netvlad(pretrained=None, num_clusters=64, pca_dim=4096,
     Returns: an ``EmbedNetPCA``: images (N, H, W, 3) uint8/float →
       (N, pca_dim) unit-norm descriptors.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     model = models.create(
         "embednetpca",
         net_vlad=models.NetVLAD(num_clusters=num_clusters,
@@ -104,10 +106,11 @@ def vgg16_netvlad(pretrained=None, num_clusters=64, pca_dim=4096,
 
 
 class DescriptorExtractor:
-    """PIL image(s) → (N, 4096) numpy descriptors."""
+    """PIL image(s) → (N, 4096) numpy descriptors, the model on ``device``
+    (the card by default; see vgg16_netvlad)."""
 
     def __init__(self, pretrained=None, height=480, width=640,
-                 pca_params=None, device="cpu"):
+                 pca_params=None, device="cuda"):
         self.device = torch.device(device)
         self.model = vgg16_netvlad(pretrained, pca_params=pca_params,
                                    device=self.device)

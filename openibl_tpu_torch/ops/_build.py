@@ -5,7 +5,9 @@ Each library is compiled by ``nvcc`` for ``sm_90a`` (Hopper) into
 that carries the hash of its sources and flags: a changed source builds
 anew, an unchanged one is reused. The compiler's report (``-Xptxas -v``:
 registers, shared memory, spills) is kept beside the library as ``.log``.
-Nothing here runs at import time.
+Nothing here runs at import time. ``launch`` is the one step every kernel
+wrapper ends with: call the C entry on the current stream, raise on its
+``cudaError_t``, count the launch.
 """
 
 import ctypes
@@ -15,6 +17,8 @@ import os.path as osp
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC = osp.join(_PKG, "csrc")
@@ -71,3 +75,16 @@ def load_library(name, sources):
                 f.write(res.stdout + res.stderr)
             os.replace(tmp, path)  # atomic: processes building at once agree
         return ctypes.CDLL(path)
+
+
+def launch(wrapper, entry, device, *args):
+    """Call the bound C ``entry`` with ``args`` (a tensor passes its
+    pointer) and then ``device``'s current stream. Raise if it returns a
+    non-zero ``cudaError_t``; else add one to ``wrapper.launches``."""
+    with torch.cuda.device(device):
+        err = entry(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                      for a in args),
+                    torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry.__name__} launch failed: cudaError {err}")
+    wrapper.launches += 1

@@ -21,7 +21,7 @@ import functools
 import torch
 
 from openibl_tpu_torch.models.netvlad import netvlad_apply, vlad_postprocess
-from openibl_tpu_torch.ops._build import load_library
+from openibl_tpu_torch.ops._build import launch, load_library
 
 TILE_ROWS = 32  # pass-1 rows per block (kTile in the .cu)
 MAX_CLUSTERS = 256
@@ -79,15 +79,10 @@ def _launch(fmap, assign_w, centroids, normalize_input, postprocess):
     part = scratch.data_ptr()
     asum = part + 4 * n * tiles * k * c
     sq = asum + 4 * n * tiles * k
-    with torch.cuda.device(dev):
-        err = _entry()(
-            fmap.data_ptr(), int(fmap.dtype == torch.bfloat16),
-            assign_w.data_ptr(), centroids.data_ptr(), out.data_ptr(),
-            part, asum, sq, n, p, c, k, TILE_ROWS, int(normalize_input),
-            int(postprocess), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"netvlad kernel launch failed: cudaError {err}")
-    netvlad_fused.launches += 1
+    launch(netvlad_fused, _entry(), dev, fmap,
+           int(fmap.dtype == torch.bfloat16), assign_w, centroids, out, part,
+           asum, sq, n, p, c, k, TILE_ROWS, int(normalize_input),
+           int(postprocess))
     return out
 
 

@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from openibl_tpu_torch.ops._build import load_library
+from openibl_tpu_torch.ops._build import launch, load_library
 
 MAX_KSUB = 256  # codes are uint8; the kernel keeps 256 LUT slots per subspace
 MAX_QUERIES_PER_BLOCK = 8  # kMaxQ in the .cu: per-thread accumulators
@@ -93,13 +93,8 @@ def _launch(lut, codes, precise):
     # widest load that divides the row and the tile's start address
     vec = next(v for v in (16, 4, 1)
                if m % v == 0 and codes.data_ptr() % v == 0)
-    with torch.cuda.device(dev):
-        err = _entry()(lut.data_ptr(), codes.data_ptr(), out.data_ptr(),
-                       m, q, ksub, t, qpb, vec, int(not precise),
-                       torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"pq_adc kernel launch failed: cudaError {err}")
-    adc_tile.launches += 1
+    launch(adc_tile, _entry(), dev, lut, codes, out, m, q, ksub, t, qpb, vec,
+           int(not precise))
     return out
 
 

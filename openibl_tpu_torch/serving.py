@@ -135,7 +135,8 @@ class RetrievalService:
         rotation in the index is applied to queries.
       pq_rerank: >0 = ADC shortlist of this size over "pq_codes", re-ranked
         by exact distance against the full-width descriptors.
-      device: where the model and the index live ("cuda" on the GPU).
+      device: where the model and the index live: the card by default;
+        without one this raises unless ``device="cpu"``.
       mesh, quant_backbone: not ported (ROADMAP Queue 1 items 12 and 14).
     """
 
@@ -143,7 +144,7 @@ class RetrievalService:
                  batch_buckets=_BATCH_BUCKETS, mesh=None,
                  quantize_int8=False, ivf_nprobe=0, pca_params=None,
                  quant_backbone=False, calib_images=None, use_pq=False,
-                 pq_rerank=0, device="cpu"):
+                 pq_rerank=0, device="cuda"):
         if isinstance(index, (str, bytes, os.PathLike)):
             with np.load(index, allow_pickle=False) as data:
                 index = {k: data[k] for k in data.files}

@@ -84,8 +84,9 @@ def world(tmp_path_factory):
 def _service(world, cls, builder, mode):
     """A service per call: each holds a full-width model (~0.6 GB), so a
     test keeps only the ones it queries."""
+    on_cpu = {"device": "cpu"} if cls is RetrievalService else {}
     return cls(world["files"][builder], weights=world["weights"],
-               **MODES[mode], **KW)
+               **MODES[mode], **KW, **on_cpu)
 
 
 def _assert_same_matches(a, b, tol=1e-4):
@@ -185,7 +186,7 @@ def test_misuse_raises_the_jax_error(world, case):
     with pytest.raises(ValueError) as theirs:
         JaxService(dict(index), **kw, **KW)
     with pytest.raises(ValueError) as ours:
-        RetrievalService(dict(index), **kw, **KW)
+        RetrievalService(dict(index), **kw, **KW, device="cpu")
     assert str(ours.value) == str(theirs.value)
 
 
@@ -206,7 +207,7 @@ def test_extract_features_matches_the_jax_model(world):
     src = ImageSource([(str(folder / f"im_{i}.png"), i, 0.0, 0.0)
                        for i in range(len(world["images"]))],
                       transform=TestTransform(H, W, device_normalize=True))
-    model = vgg16_netvlad(world["weights"])
+    model = vgg16_netvlad(world["weights"], device="cpu")
     loader = BatchLoader(src, indices=[4, 0, 3, 1, 2], batch_size=2)
     feats = extract_features(model, loader)
     on_dev = extract_features(model, loader, device_output=True)

@@ -8,6 +8,8 @@ magnitude of room while still catching any layout or formula slip, which
 moves entries by ~1e-2.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -174,7 +176,8 @@ def test_hub_npz_matches_jax_hub(jax_pca_model, tmp_path):
     images = _images(6)
     jm, jp = jax_hub(path, num_clusters=K, pca_dim=PCA_DIM)
     jdesc = np.asarray(jm.apply(jp, jnp.asarray(images)))
-    model = vgg16_netvlad(path, num_clusters=K, pca_dim=PCA_DIM)
+    model = vgg16_netvlad(path, num_clusters=K, pca_dim=PCA_DIM,
+                          device="cpu")
     assert not model.training and not model.net_vlad.fused
     with torch.no_grad():
         desc = model(torch.from_numpy(images)).numpy()
@@ -187,13 +190,14 @@ def test_hub_fails_loudly_like_jax(jax_pca_model, tmp_path):
     _, params = jax_pca_model
     wrong = str(tmp_path / "wrong.npz")
     save_checkpoint(wrong, params)
-    for hub in (jax_hub, vgg16_netvlad):
+    port_hub = functools.partial(vgg16_netvlad, device="cpu")
+    for hub in (jax_hub, port_hub):
         with pytest.raises(ValueError, match="did not provide"):
             hub(wrong, num_clusters=8, pca_dim=PCA_DIM)
     trainer = str(tmp_path / "trainer.npz")
     save_checkpoint(trainer, {"params": {"base": params["base"],
                                          "vlad": params["vlad"]}})
-    for hub in (jax_hub, vgg16_netvlad):
+    for hub in (jax_hub, port_hub):
         with pytest.raises(ValueError, match="PCA"):
             hub(trainer, num_clusters=K, pca_dim=PCA_DIM)
 
@@ -234,7 +238,7 @@ def test_reference_pth_gives_same_descriptors_in_both_stacks(wrapped,
     images = (rng.randn(2, 32, 48, 3) * 40).astype(np.float32)
     jm, jp = jax_hub(path, num_clusters=K, pca_dim=32)
     jdesc = np.asarray(jm.apply(jp, jnp.asarray(images)))
-    model = vgg16_netvlad(path, num_clusters=K, pca_dim=32)
+    model = vgg16_netvlad(path, num_clusters=K, pca_dim=32, device="cpu")
     with torch.no_grad():
         desc = model(torch.from_numpy(images)).numpy()
     assert desc.shape == (2, 32)

@@ -53,7 +53,7 @@ def world(tmp_path_factory):
     index = {"descriptors": gallery,
              "paths": np.array([f"img_{i}.jpg" for i in range(16)])}
     kw = dict(weights=weights, height=H, width=W, batch_buckets=(1, 2))
-    ours = RetrievalService(index, **kw)
+    ours = RetrievalService(index, device="cpu", **kw)
     theirs = JaxService(index, **kw)
     ours.warmup(topk=5)
     return {"ours": ours, "theirs": theirs, "images": images,
@@ -111,7 +111,7 @@ def test_reduced_precision_indexes_rank_like_f32():
     g /= np.linalg.norm(g, axis=1, keepdims=True)
     img = rng.randint(0, 256, (H, W, 3)).astype(np.uint8)
     codes, scales = quantize_index_int8(g)
-    kw = dict(height=H, width=W, batch_buckets=(1,))
+    kw = dict(height=H, width=W, batch_buckets=(1,), device="cpu")
     svcs = [RetrievalService({"descriptors": g}, **kw),
             RetrievalService({"descriptors": g.astype(np.float16)}, **kw),
             RetrievalService({"descriptors": codes, "scales": scales}, **kw),
@@ -128,16 +128,17 @@ def test_reduced_precision_indexes_rank_like_f32():
 def test_unported_options_raise(kwargs, item):
     index = {"descriptors": np.zeros((2, 4096), np.float32)}
     with pytest.raises(NotImplementedError, match=item):
-        RetrievalService(index, height=H, width=W, **kwargs)
+        RetrievalService(index, height=H, width=W, device="cpu", **kwargs)
 
 
 def test_index_validation():
     with pytest.raises(ValueError, match="paths"):
         RetrievalService({"descriptors": np.zeros((2, 4096), np.float32),
-                          "paths": np.array(["a"])}, height=H, width=W)
+                          "paths": np.array(["a"])}, height=H, width=W,
+                         device="cpu")
     with pytest.raises(ValueError, match="scales"):
         RetrievalService({"descriptors": np.zeros((2, 4096), np.int8)},
-                         height=H, width=W)
+                         height=H, width=W, device="cpu")
 
 
 def test_http_handler_answers_healthz_and_query(world):
@@ -182,6 +183,7 @@ def test_slice_imports_with_jax_blocked():
         "import openibl_tpu_torch.ops.pq, openibl_tpu_torch.ops.pq_kernel\n"
         "import openibl_tpu_torch.data.loader\n"
         "import openibl_tpu_torch.parallel.extract\n"
+        "import openibl_tpu_torch.tools.mosaic_probe\n"
         "assert not any(m == 'openibl_tpu' or m.startswith('openibl_tpu.')\n"
         "               for m in sys.modules), 'JAX package imported'\n"
         "print('ok')\n"

@@ -24,16 +24,21 @@ layer's bias centres the VLADs on their mean over the bootstrap images, as
 a PCA fit does, because the raw random init maps every image to nearly the
 same descriptor. Each served
 path runs with the kernels' launch counts set to 0 just before it and read
-just after. Prints timing lines (CUDA events, or the host clock for
-service.query) with the card's name and power limit, each kernel's time
+just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
+the same bits on a second run, and against its split-precision arithmetic
+run in plain PyTorch; K2 also at 3 and 17 queries. Prints timing
+lines (CUDA events, or the host clock for service.query) with the card's
+name and power limit on every line that holds a number, each kernel's time
 per call beside its bound (the larger of its bytes over 3.35 TB/s and its
-f32 operations over 67 TFLOP/s, the H100 SXM data sheet's peaks) and,
-where one PyTorch call computes the same function, that call's time; then,
-after every timed phase, each kernel's device time (torch.profiler); one
+operations over the peak for their type, the H100 SXM data sheet's: f32
+on CUDA cores 67 TFLOP/s; K1's split-precision products on the tensor
+cores, 3 TF32 products at 495 TFLOP/s, with the f32 CUDA-core bound of
+the same products beside it) and, where one PyTorch call computes the same function, that call's
+time; then, after every timed phase, each kernel's and each yardstick's
+device time (torch.profiler, ``device_ms`` / ``library_device_ms``); one
 JSON line on the kernels, and as its last line {"ok": true, "device":
-{...}}. Any failed check raises: the
-exit code is then non-zero and the last line is not printed. Needs CUDA;
-imports no jax.
+{...}}. Any failed check raises: the exit code is then non-zero and the
+last line is not printed. Needs CUDA; imports no jax.
 """
 
 import importlib.util
@@ -65,13 +70,17 @@ K2_ROWS = (1_000_000, 999_983, GALLERY)  # 1M codes, a ragged N, main path
 PQ_M, NLIST, NPROBE, SHORTLIST = 64, 256, 16, 256
 KERNELS = {"netvlad": ["netvlad.cu"], "pq_adc": ["pq_adc.cu"],
            "mosaic_probe": ["mosaic_probe.cu"]}
-HBM_BYTES_PER_MS, F32_OPS_PER_MS = 3.35e9, 67e9  # H100 SXM, 700 W
+# H100 SXM at 700 W (data sheet): HBM bytes, f32 CUDA-core operations and
+# dense tensor-core operations (TF32, bf16) per ms
+HBM_BYTES_PER_MS, F32_OPS_PER_MS = 3.35e9, 67e9
+TF32_OPS_PER_MS, BF16_OPS_PER_MS = 495e9, 989e9
+CARD = ""  # the card's name and power limit, set by run()
 
 
 def check(cond, what):
     if not cond:
-        raise RuntimeError(f"check failed: {what}")
-    print(f"  ok: {what}", flush=True)
+        raise RuntimeError(f"check failed: {what} [{CARD}]")
+    print(f"  ok: {what} [{CARD}]", flush=True)
 
 
 def card_line():
@@ -100,8 +109,9 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 def device_ms(fn, reps=20):
     """Device time of one call of ``fn``: the time of the CUDA kernels in a
-    torch.profiler trace of ``reps`` calls, over ``reps``; None if the trace
-    holds no device time. Unlike cuda_ms it leaves out the host work."""
+    torch.profiler trace of ``reps`` calls, over ``reps`` (None if the trace
+    holds no device time), and each kernel's share of it by name. Unlike
+    cuda_ms it leaves out the host work."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -110,18 +120,25 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    return us / reps / 1e3 if us > 0 else None
+    parts = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            name = e.key.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            parts[name] = e.self_device_time_total / reps / 1e3
+    total = sum(parts.values())
+    return (total if total > 0 else None), parts
 
 
 def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4g} ms"
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_ms=F32_OPS_PER_MS):
     """The least time (ms) the card could take to move ``nbytes`` and do
-    ``ops`` f32 operations on CUDA cores, and which of the two sets it."""
-    b, o = nbytes / HBM_BYTES_PER_MS, ops / F32_OPS_PER_MS
+    ``ops`` operations at ``ops_per_ms`` (default: f32 on CUDA cores), and
+    which of the two sets it."""
+    b, o = nbytes / HBM_BYTES_PER_MS, ops / ops_per_ms
     return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o else
             "operations"}
 
@@ -202,7 +219,7 @@ def reference_state(model):
     return sd
 
 
-def build_kernels():
+def build_kernels(card):
     """One nvcc per source, all started together."""
     from openibl_tpu_torch.ops import _build
 
@@ -215,36 +232,57 @@ def build_kernels():
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         done = list(pool.map(one, KERNELS))
     print(f"phase build: {len(done)} kernels in parallel, "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
     for name, secs in done:
         lib_path = _build.library_path(name, KERNELS[name])
-        print(f"  {osp.relpath(lib_path, ROOT)}: {secs:.2f} s")
+        print(f"  {osp.relpath(lib_path, ROOT)}: {secs:.2f} s [{card}]")
         with open(lib_path[:-3] + ".log") as f:
             print("".join(f"  ptxas: {ln}" for ln in f if "Used" in ln
                           or "spill" in ln or "smem" in ln), end="")
 
 
+def gate_ratio(out, ref, rtol=RTOL, atol=ATOL):
+    """max |out - ref| / (atol + rtol |ref|): at most 1 passes the gate."""
+    return float(((out - ref).abs() / (atol + rtol * ref.abs())).max())
+
+
 def check_k1(dev, card):
-    """K1 against its plain version at the main-path shape."""
+    """K1 against its plain version at the main-path shape, at a ragged P
+    and at K = 17; its bits repeat from run to run, and it tracks its
+    split-precision arithmetic run in plain PyTorch (products in f64)
+    within a tenth of the gate."""
     from openibl_tpu_torch.ops import netvlad_kernel as nk
 
     g = torch.Generator(device=dev).manual_seed(0)
     fmap = torch.randn((N_IMG, 30, 40, 512), generator=g, device=dev)
     assign_w = torch.randn((512, 64), generator=g, device=dev) * 2
     cent = torch.rand((64, 512), generator=g, device=dev)
+    ragged = torch.randn((4, 30, 41, 512), generator=g, device=dev)
+    w17 = torch.randn((512, 17), generator=g, device=dev) * 2
+    cent17 = torch.rand((17, 512), generator=g, device=dev)
     max_err = 0.0
+    cases = [(fmap, assign_w, cent, post) for post in (False, True)]
+    cases += [(ragged, w, c, True) for w, c in ((assign_w, cent),
+                                                (w17, cent17))]
     for dtype in (torch.float32, torch.bfloat16):
-        x = fmap.to(dtype)
-        for post in (False, True):
-            out = nk.netvlad_fused(x, assign_w, cent, postprocess=post)
-            ref = nk.netvlad_plain(x, assign_w, cent, postprocess=post)
+        for f, w, c, post in cases:
+            x = f.to(dtype)
+            out = nk.netvlad_fused(x, w, c, postprocess=post)
+            again = nk.netvlad_fused(x, w, c, postprocess=post)
+            ref = nk.netvlad_plain(x, w, c, postprocess=post)
+            emu = nk.netvlad_split_emulation(x, w, c, postprocess=post)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             max_err = max(max_err, err)
             torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
-            check(True, f"K1 == plain head, {str(dtype)[6:]} fmap "
-                        f"{tuple(x.shape)}, postprocess={post}, "
-                        f"max_abs_err={err:.3g} (rtol {RTOL}, atol {ATOL})")
+            r_plain, r_emu = gate_ratio(out, ref), gate_ratio(out, emu)
+            check(torch.equal(out, again) and r_emu < 0.1,
+                  f"K1 == plain head, {str(dtype)[6:]} fmap "
+                  f"{tuple(x.shape)}, K={w.shape[1]}, postprocess={post}, "
+                  f"max_abs_err={err:.3g} (rtol {RTOL}, atol {ATOL}; "
+                  f"{r_plain:.4f} of that gate, {r_emu:.4f} of it from the "
+                  f"split-precision emulation, < 0.1); a second run gives "
+                  f"the same bits")
     def k1():
         return nk.netvlad_fused(fmap, assign_w, cent, postprocess=True)
 
@@ -258,17 +296,39 @@ def check_k1(dev, card):
                                                      postprocess=True))
     # f32 with postprocess: each of the two products (logits x·W and the
     # aggregation aᵀx) is N·HW·C·K multiply-adds; fmap, weights and the
-    # (N, K, C) output each cross HBM once
+    # (N, K, C) output each cross HBM once. Both products run on the tensor
+    # cores in split precision, 3 TF32 products each for an f32 fmap (3 bf16
+    # ones for bf16): that is the restated bound. The products as f32 on
+    # CUDA cores give a larger bound, printed beside it
     n, hw, c, k = N_IMG, 30 * 40, 512, 64
-    b = bound(nbytes(fmap, assign_w, cent) + n * k * c * 4,
-              2 * 2 * n * hw * c * k)
+    flops = 2 * 2 * n * hw * c * k
+    io = nbytes(fmap, assign_w, cent) + n * k * c * 4
+    b = bound(io, 3 * flops, TF32_OPS_PER_MS)
+    b_cores = bound(io, flops)
+    b16 = bound(io - nbytes(fmap) // 2, 3 * flops, BF16_OPS_PER_MS)
+    # the scratch, measured: the peak allocation of one call less its output
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k1()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base - n * k * c * 4
     print(f"timing K1 (16,30,40,512) f32 postprocess: kernel {k1_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}) | bf16: kernel {k1_bf16_ms:.4f} ms, plain "
-          f"{plain_bf16_ms:.4f} ms [{card}]")
+          f"({b['bound_by']}: 3 TF32 products at 495 TFLOP/s; as f32 on "
+          f"CUDA cores {b_cores['bound_ms']:.4f} ms), scratch {scratch} "
+          f"bytes (peak allocation of a call less its output; the layout's "
+          f"{nk.scratch_bytes(n, hw, c, k)}) | bf16: kernel "
+          f"{k1_bf16_ms:.4f} ms, plain {plain_bf16_ms:.4f} ms, bound "
+          f"{b16['bound_ms']:.4f} ms ({b16['bound_by']}: 3 bf16 products at "
+          f"989 TFLOP/s) [{card}]")
     entry = {"max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms, **b,
              "library_ms": None}
-    return entry, ("K1 (16,30,40,512) f32 postprocess", k1, entry)
+    bf16_entry = {"ms": k1_bf16_ms, **b16}
+    return entry, [("K1 (16,30,40,512) f32 postprocess", k1, entry),
+                   ("K1 (16,30,40,512) bf16 postprocess",
+                    lambda: nk.netvlad_fused(fb, assign_w, cent,
+                                             postprocess=True), bf16_entry)]
 
 
 def check_k2(dev, card):
@@ -280,11 +340,13 @@ def check_k2(dev, card):
     codes_all = torch.randint(0, 256, (K2_ROWS[0], PQ_M), generator=g,
                               device=dev, dtype=torch.uint8)
     luts = {q: torch.rand((PQ_M, q, 256), generator=g, device=dev) * 0.1
-            for q in (1, 16)}
+            for q in (1, 3, 16, 17)}
     max_err = 0.0
     for n in K2_ROWS:
         codes = codes_all[:n]
         for q, lut in luts.items():
+            if q in (3, 17) and n == K2_ROWS[0]:
+                continue  # Q=3 and 17 at the ragged N and at 100k
             for precise in (True, False):
                 out = pk.adc_tile(lut, codes, precise=precise)
                 ref = pk.adc_tile_plain(lut, codes, precise=precise)
@@ -298,7 +360,8 @@ def check_k2(dev, card):
     times = {}
     for n in (K2_ROWS[0], GALLERY):
         codes = codes_all[:n]
-        for q, lut in luts.items():
+        for q in (1, 16):
+            lut = luts[q]
             for precise in (False, True):
                 k = cuda_ms(lambda: pk.adc_tile(lut, codes, precise))
                 p = cuda_ms(lambda: pk.adc_tile_plain(lut, codes, precise))
@@ -320,8 +383,12 @@ def check_k2(dev, card):
           f"({b16['bound_by']}) [{card}]")
     entry = {"max_abs_err": max_err, "ms": k2_ms, "plain_ms": plain_ms, **b,
              "library_ms": None}
-    return entry, (f"K2 Q=1 N={GALLERY} bf16 LUT",
-                   lambda: pk.adc_tile(lut1, codes), entry)
+    codes_1m, lut16 = codes_all, luts[16]
+    q16 = {"ms": times[K2_ROWS[0], 16, False][0], **b16}
+    return entry, [(f"K2 Q=1 N={GALLERY} bf16 LUT",
+                    lambda: pk.adc_tile(lut1, codes), entry),
+                   (f"K2 Q=16 N={K2_ROWS[0]} bf16 LUT",
+                    lambda: pk.adc_tile(lut16, codes_1m), q16)]
 
 
 def probe_library_call(key, args, kw):
@@ -416,23 +483,57 @@ def check_probes(dev, card):
         out[p.key].update(max_abs_err=err, ms=k_ms, plain_ms=plain_ms, **b,
                           library_ms=lib_ms)
         device_calls.append((f"{p.key} '{p.name}'", kernel, out[p.key]))
+        device_calls.append((f"{p.key} yardstick {what}", lib,
+                             out[p.key], "library_device_ms"))
     return list(out.values()), device_calls
+
+
+def enqueue_times(calls, card, n=200):
+    """Host time to enqueue one call of each kernel (host clock over ``n``
+    calls, no synchronise inside), stored as ``enqueue_ms``: the wrapper's
+    checks, its allocations, the ctypes call and the launch. Taken before
+    any profiler session."""
+    for what, fn, entry, *key in calls:
+        if key:
+            continue
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        entry["enqueue_ms"] = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        print(f"host {what}: {entry['enqueue_ms']:.4f} ms to enqueue a call "
+              f"(host clock, {n} calls) [{card}]")
 
 
 def device_times(calls, card):
     """Each kernel's device time (torch.profiler) beside its per-call time
-    and bound. Taken after every timed phase: a profiler session may leave
-    host cost on the launches that follow it."""
+    and bound, stored in its entry as ``device_ms``; a yardstick's (a call
+    of four) as ``library_device_ms`` of its probe's entry. Taken after
+    every timed phase: a profiler session may leave host cost on the
+    launches that follow it."""
     # the first profiler session of a process recorded no kernel on the
     # H100: one throwaway session first
     device_ms(lambda: torch.ones(1, device="cuda").add_(1), reps=1)
-    for what, fn, entry in calls:
-        ms = device_ms(fn)
-        share = "" if ms is None else \
-            f", {entry['bound_ms'] / ms:.3%} of bound on the device"
-        print(f"device {what}: {fmt_ms(ms)} (profiler){share}; per call "
+    for what, fn, entry, *key in calls:
+        ms, parts = device_ms(fn)
+        if key:
+            entry[key[0]] = ms
+            print(f"device {what}: {fmt_ms(ms)} (profiler); per call "
+                  f"{entry['library_ms']:.4f} ms [{card}]")
+            continue
+        entry["device_ms"] = ms
+        share = "" if ms is None else (
+            f", {entry['bound_ms'] / ms:.3%} of bound on the device, "
+            f"{entry['bound_ms'] / entry['ms']:.3%} per call; per call "
+            f"minus device {entry['ms'] - ms:.4f} ms (host work)")
+        print(f"device {what}: {fmt_ms(ms)} (profiler); per call "
               f"{entry['ms']:.4f} ms, bound {entry['bound_ms']:.3g} ms "
-              f"({entry['bound_by']}) [{card}]")
+              f"({entry['bound_by']}){share} [{card}]")
+        if len(parts) > 1:
+            print(f"  its kernels: " + ", ".join(
+                f"{k} {v:.4g} ms" for k, v in parts.items()) + f" [{card}]")
 
 
 def build_indexes(gallery, desc, dev, card):
@@ -475,7 +576,7 @@ def build_indexes(gallery, desc, dev, card):
               f"{name}: {NLIST} cells x {lists.shape[1]} partition the "
               f"{GALLERY} rows")
     print(f"  IVFADC cells equal build_ivf's: "
-          f"{np.array_equal(ivf['lists'], ivfpq['ivf_lists'])}")
+          f"{np.array_equal(ivf['lists'], ivfpq['ivf_lists'])} [{card}]")
     # K2 vs the plain scorer through pq_search. The two LUTs come from f32
     # products in another order (~1e-6 apart): 1e-5 with the f32 LUT; with
     # the bf16 LUT an entry may round to the neighbouring bf16 value (one
@@ -529,7 +630,7 @@ def serve_modes(index, built, weights, images, rows, dev, card, serve_torch):
         torch.cuda.synchronize()
         print(f"phase serve {name}: {kw}, built and warmed in "
               f"{time.perf_counter() - t0:.2f} s over {service.index_size} "
-              f"rows")
+              f"rows [{card}]")
         nk.netvlad_fused.launches = pk.adc_tile.launches = 0  # path starts
         if name == "pq":
             server = ThreadingHTTPServer(("127.0.0.1", 0),
@@ -563,7 +664,7 @@ def serve_modes(index, built, weights, images, rows, dev, card, serve_torch):
                                  for j in range(len(ids))]))
                   for n in (1, 5, 10)]
         print(f"  {name}: Recall@1/5/10 = {recall} over {len(ids)} planted "
-              f"queries; launches K1 {k1}, K2 {k2}")
+              f"queries; launches K1 {k1}, K2 {k2} [{card}]")
         check(all(len(r) == 10 and [m["rank"] for m in r] == list(
                   range(1, 11)) for r in results),
               f"{name}: 10 matches per query, ranks 1..10")
@@ -614,17 +715,19 @@ def run(dev):
     from openibl_tpu_torch.ops.distance import topk_nearest
     from openibl_tpu_torch.serving import RetrievalService
 
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name} "
+          f"[{card}]")
 
     # -- phase 1: build the kernels; phase 2: each against its plain -------
-    build_kernels()
-    k1, k1_call = check_k1(dev, card)
-    k2, k2_call = check_k2(dev, card)
+    build_kernels(card)
+    k1, k1_calls = check_k1(dev, card)
+    k2, k2_calls = check_k2(dev, card)
     probes, probe_calls = check_probes(dev, card)
 
     # -- phase 3: the model, NetVLAD bootstrapped from its conv5 features ----
@@ -672,7 +775,7 @@ def run(dev):
     d2 = torch.cdist(desc_k1, desc_k1).square()
     d2 = d2[~torch.eye(PLANTED, dtype=torch.bool, device=dev)]
     print(f"  planted descriptors: pairwise sq-dist min {float(d2.min()):.4f}, "
-          f"median {float(d2.median()):.4f}")
+          f"median {float(d2.median()):.4f} [{card}]")
 
     # -- phase 4: gallery on the device, planted rows, retrieval checks -------
     gg = torch.Generator(device=dev).manual_seed(1)
@@ -718,7 +821,7 @@ def run(dev):
         torch.cuda.synchronize()
         print(f"phase service: built and warmed in "
               f"{time.perf_counter() - t0:.2f} s over {service.index_size} "
-              f"rows")
+              f"rows [{card}]")
         server = ThreadingHTTPServer(("127.0.0.1", 0),
                                      serve_torch.make_handler(service))
         thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -780,8 +883,11 @@ def run(dev):
               f"p50 {r['p50_ms']:.3f} ms (host clock, 25 queries) [{card}]")
     time_searches(gallery, desc_k1, built, dev, card)
 
-    # -- phase 10: each kernel's device time, after every timed phase ------
-    device_times([k1_call, k2_call, *probe_calls], card)
+    # -- phase 10: each kernel's host enqueue time, then its device time
+    # (after every timed phase) ---------------------------------------------
+    calls = [*k1_calls, *k2_calls, *probe_calls]
+    enqueue_times(calls, card)
+    device_times(calls, card)
 
     print(json.dumps({"kernels": [
         {"name": "netvlad_fused", "route": "cuda",

@@ -45,9 +45,11 @@ def find_nvcc():
 
 
 def library_path(name, sources):
-    """Where the build of ``sources`` (file names under csrc/) goes."""
+    """Where the build of ``sources`` (file names under csrc/) goes. The
+    hash covers the sources and every header in csrc/ (``*.cuh``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for s in [*sources, *headers]:
         with open(osp.join(CSRC, s), "rb") as f:
             h.update(s.encode() + b"\0" + f.read())
     return osp.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
@@ -79,12 +81,14 @@ def load_library(name, sources):
 
 def launch(wrapper, entry, device, *args):
     """Call the bound C ``entry`` with ``args`` (a tensor passes its
-    pointer) and then ``device``'s current stream. Raise if it returns a
-    non-zero ``cudaError_t``; else add one to ``wrapper.launches``."""
+    pointer) and then ``device``'s current stream, with ``device`` the
+    current device. Raise if it returns a non-zero ``cudaError_t``; else
+    add one to ``wrapper.launches``. ``torch.cuda.device`` sets the device
+    only when it is not already current."""
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
     with torch.cuda.device(device):
-        err = entry(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                      for a in args),
-                    torch.cuda.current_stream(device).cuda_stream)
+        err = entry(*ptrs, stream)
     if err:
         raise RuntimeError(f"{entry.__name__} launch failed: cudaError {err}")
     wrapper.launches += 1

@@ -8,13 +8,16 @@ subspace order j = 0..m-1. With ``precise=False`` the LUT entries are first
 rounded to bf16 (round to nearest even), as the JAX package's default path
 rounds them; the sum stays f32. The codes are the index's own (N, m)
 row-major uint8 rows (the TPU kernel's subspace-major transpose was a
-Mosaic layout need only); the CUDA design is in the source's header.
+Mosaic layout need only); the CUDA design (a persistent grid, the LUTs
+query-innermost in shared memory, subspace chunks when they do not fit) is
+in the source's header, its launch geometry in ``adc_geometry``.
 
 ``adc_tile`` takes the plain PyTorch version (``adc_tile_plain``) for codes
 on the CPU. For codes on a CUDA device it launches the kernel or raises;
 there is no fallback. ``adc_tile.launches`` counts the kernel's launches.
 """
 
+import collections
 import ctypes
 import functools
 
@@ -22,9 +25,18 @@ import torch
 
 from openibl_tpu_torch.ops._build import launch, load_library
 
-MAX_KSUB = 256  # codes are uint8; the kernel keeps 256 LUT slots per subspace
-MAX_QUERIES_PER_BLOCK = 8  # kMaxQ in the .cu: per-thread accumulators
-SMEM_BYTES = 227 * 1024  # a Hopper block's opt-in shared memory
+# Copies of csrc/pq_adc.cu's constants (the CPU tests read the source and
+# hold each copy to it)
+MAX_KSUB = 256  # kSlots: codes are uint8, 256 LUT slots per subspace
+MAX_QUERIES_PER_PASS = 32  # kMaxQ: (row, query) accumulators
+QUERY_SLOTS = (1, 2, 4, 8, 16, 24, 32)  # the ADC_CASE instances (QP)
+SMEM_BYTES = 227 * 1024  # kMaxSmem: a Hopper block's opt-in shared memory
+THREADS = 512  # kThreads: one row a thread at a time
+MAX_SUBSPACES = 256  # a code row of at most 256 bytes
+
+AdcGeometry = collections.namedtuple(
+    "AdcGeometry", "passes queries_per_pass query_slots subspaces_per_chunk "
+                   "chunks smem_bytes blocks rows_per_block")
 
 
 def _round_lut(lut, precise):
@@ -59,11 +71,53 @@ def _check(lut, codes):
         raise ValueError("lut and codes must be contiguous")
 
 
-def queries_per_block(m, q, precise):
-    """Queries whose LUTs one block stages in shared memory (256 slots per
-    subspace, 4 bytes each when precise, else 2); 0 if one does not fit."""
-    per_query = m * MAX_KSUB * (4 if precise else 2)
-    return min(MAX_QUERIES_PER_BLOCK, q, SMEM_BYTES // per_query)
+def adc_geometry(m, q, t, precise, sms):
+    """How the kernel splits a call of m subspaces, q queries and t code
+    rows on a card of ``sms`` SMs.
+
+    Queries go in ``passes`` of at most 32 (grid.y), balanced, each held in
+    ``query_slots`` (the padded count QP, a kernel instance) of 4 bytes when
+    precise, else 2. A block keeps the pass's LUTs as [j][256][QP] in shared
+    memory; when all m subspaces do not fit in 227 KB they go in ``chunks``
+    of ``subspaces_per_chunk`` (a multiple of 4 below m, so a chunk's codes
+    keep 4-byte loads), in order. Each pass runs ``blocks`` blocks, one per
+    SM over all passes (no more than one per 512 rows), each on a
+    contiguous range of ``rows_per_block`` rows: the LUT is staged once per
+    block. The kernel runs this geometry as given (it refuses an
+    ``smem_bytes`` other than the chunk's LUTs, or rows that do not cover
+    t). Raises for m outside 1..256 or q < 1."""
+    lut = _lut_geometry(m, q, precise)
+    blocks = max(1, min(sms // lut[0], -(-t // THREADS)))
+    return AdcGeometry(*lut, blocks, -(-t // blocks))
+
+
+@functools.cache
+def _lut_geometry(m, q, precise):
+    """adc_geometry's passes, query slots and subspace chunks."""
+    if not 1 <= m <= MAX_SUBSPACES:
+        raise ValueError(f"m={m} subspaces outside 1..{MAX_SUBSPACES} (the "
+                         f"kernel takes code rows of at most "
+                         f"{MAX_SUBSPACES} bytes)")
+    if q < 1:
+        raise ValueError(f"q={q}: the kernel needs at least one query")
+    passes = -(-q // MAX_QUERIES_PER_PASS)
+    per_pass = -(-q // passes)
+    slots = next(s for s in QUERY_SLOTS if s >= per_pass)
+    per_subspace = MAX_KSUB * slots * (4 if precise else 2)
+    fit = SMEM_BYTES // per_subspace
+    if fit >= m:
+        mc = m
+    else:
+        mc = -(-m // -(-m // fit))  # as many chunks as needed, balanced
+        mc = -(-mc // 4) * 4
+        if mc > fit:
+            mc = fit - fit % 4
+    return passes, per_pass, slots, mc, -(-m // mc), mc * per_subspace
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
@@ -71,7 +125,8 @@ def _entry():
     """The C entry, built and bound once per process."""
     fn = load_library("pq_adc", ["pq_adc.cu"]).pq_adc_forward
     p, i = ctypes.c_void_p, ctypes.c_int  # untyped, ctypes cuts pointers
-    fn.argtypes = [p, p, p, i, i, i, ctypes.c_longlong, i, i, i, p]
+    ll = ctypes.c_longlong
+    fn.argtypes = [p, p, p, i, i, i, ll, i, i, i, i, ll, ll, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -85,16 +140,11 @@ def _launch(lut, codes, precise):
     out = torch.empty((q, t), dtype=torch.float32, device=dev)
     if t == 0 or q == 0:
         return out
-    qpb = queries_per_block(m, q, precise)
-    if qpb < 1:
-        raise ValueError(
-            f"one query's LUT (m={m} x {MAX_KSUB} slots) exceeds a block's "
-            f"{SMEM_BYTES} bytes of shared memory")
-    # widest load that divides the row and the tile's start address
-    vec = next(v for v in (16, 4, 1)
-               if m % v == 0 and codes.data_ptr() % v == 0)
-    launch(adc_tile, _entry(), dev, lut, codes, out, m, q, ksub, t, qpb, vec,
-           int(not precise))
+    geo = adc_geometry(m, q, t, precise, _sm_count(dev.index))
+    launch(adc_tile, _entry(), dev, lut, codes, out, m, q, ksub, t,
+           geo.queries_per_pass, geo.query_slots, geo.subspaces_per_chunk,
+           geo.blocks, geo.rows_per_block, geo.smem_bytes, int(not precise),
+           dev.index)
     return out
 
 

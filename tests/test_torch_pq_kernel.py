@@ -57,18 +57,115 @@ def test_bad_inputs_raise(bad, err, match):
         pk.adc_tile(lut, codes)
 
 
+def _geo(m, q, precise, t=100_000):
+    return pk.adc_geometry(m, q, t, precise, sms=132)
+
+
 def test_queries_per_block_follows_shared_memory():
-    # m=64: 64 KB of f32 LUT per query (3 fit), 32 KB in bf16 (7 fit)
-    assert pk.queries_per_block(64, 16, precise=True) == 3
-    assert pk.queries_per_block(64, 16, precise=False) == 7
-    assert pk.queries_per_block(64, 1, precise=True) == 1
-    assert pk.queries_per_block(8, 17, precise=True) == pk.MAX_QUERIES_PER_BLOCK
-    assert pk.queries_per_block(1024, 1, precise=True) == 0
+    """adc_geometry: at m=64 one query's LUT fits whole (64 KB f32, 32 KB
+    bf16); 16 queries take 1 MB / 512 KB, so the subspaces go in chunks;
+    past 32 queries the queries go in balanced passes."""
+    g = _geo(64, 1, precise=True)
+    assert (g.passes, g.query_slots, g.subspaces_per_chunk, g.chunks) == \
+        (1, 1, 64, 1) and g.smem_bytes == 64 * 1024
+    assert _geo(64, 1, precise=False).smem_bytes == 32 * 1024
+    g = _geo(64, 16, precise=False)
+    assert (g.query_slots, g.subspaces_per_chunk, g.chunks) == (16, 24, 3)
+    g = _geo(64, 16, precise=True)
+    assert (g.query_slots, g.subspaces_per_chunk, g.chunks) == (16, 12, 6)
+    g = _geo(8, 17, precise=True)
+    assert (g.passes, g.queries_per_pass, g.query_slots, g.chunks) == \
+        (1, 17, 24, 1)
+    g = _geo(8, 33, precise=False)
+    assert (g.passes, g.queries_per_pass, g.query_slots) == (2, 17, 24)
+    with pytest.raises(ValueError, match="m=1024"):
+        _geo(1024, 1, precise=True)
+
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("q", [1, 3, 16, 17, 64])
+@pytest.mark.parametrize("m", [8, 16, 64, 128])
+def test_adc_geometry_fits_and_covers_in_order(m, q, precise):
+    """Each launch geometry fits a block's 227 KB, its query passes cover
+    the queries once, and its chunks cover j = 0..m-1 in order, each a
+    multiple of 4 subspaces but the last (4-byte code loads)."""
+    g = _geo(m, q, precise)
+    assert g.smem_bytes <= pk.SMEM_BYTES == 232_448
+    assert g.smem_bytes == (g.subspaces_per_chunk * pk.MAX_KSUB
+                            * g.query_slots * (4 if precise else 2))
+    assert g.queries_per_pass <= pk.MAX_QUERIES_PER_PASS
+    assert g.query_slots in pk.QUERY_SLOTS
+    assert g.query_slots >= g.queries_per_pass
+    assert (g.passes - 1) * g.queries_per_pass < q <= \
+        g.passes * g.queries_per_pass
+    # the kernel's loop: for (j0 = 0; j0 < m; j0 += mc)
+    mc = g.subspaces_per_chunk
+    chunks = [(j0, min(j0 + mc, m)) for j0 in range(0, m, mc)]
+    assert len(chunks) == g.chunks
+    assert [j for a, b in chunks for j in range(a, b)] == list(range(m))
+    if g.chunks > 1:
+        assert mc % 4 == 0
+    # no more chunks than chunks of as many subspaces as fit (4-aligned)
+    fit = pk.SMEM_BYTES // (g.smem_bytes // mc)
+    assert g.chunks <= -(-m // (fit - fit % 4)) if fit < m else \
+        g.chunks == 1
+
+
+@pytest.mark.parametrize("t, q, blocks", [
+    (1, 1, 1), (777, 1, 2), (100_000, 1, 132), (100_000, 64, 66),
+    (1_000_000, 16, 132), (999_983, 33, 66)])
+def test_adc_geometry_rows_per_block(t, q, blocks):
+    """One block per SM over all passes, no more than one per 512 rows;
+    the blocks' contiguous row ranges cover the t rows."""
+    g = pk.adc_geometry(64, q, t, False, sms=132)
+    assert g.blocks == blocks
+    assert g.rows_per_block == -(-t // blocks)
+    assert (g.blocks - 1) * g.rows_per_block < t <= \
+        g.blocks * g.rows_per_block
+
+
+@pytest.mark.parametrize("m", [0, 257, 1024])
+def test_adc_geometry_rejects_oversize_m(m):
+    with pytest.raises(ValueError, match=f"m={m} subspaces"):
+        _geo(m, 1, precise=False)
+
+
+def _source():
+    import os.path as osp
+
+    from openibl_tpu_torch.ops import _build
+
+    with open(osp.join(_build.CSRC, "pq_adc.cu")) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name, value", [
+    ("kThreads", pk.THREADS), ("kSlots", pk.MAX_KSUB),
+    ("kMaxQ", pk.MAX_QUERIES_PER_PASS)])
+def test_constants_match_the_source(name, value):
+    """adc_geometry's copies of csrc/pq_adc.cu's constants are the
+    source's: a change on one side fails here, not at the launch."""
+    import re
+
+    assert re.findall(rf"constexpr int {name} = (\d+);", _source()) == \
+        [str(value)]
+
+
+def test_query_slots_and_shared_memory_match_the_source():
+    """The padded query counts adc_geometry picks are the kernel's
+    instances, and its shared-memory ceiling is the kernel's."""
+    import re
+
+    src = _source()
+    assert tuple(int(v) for v in re.findall(r"^\s*ADC_CASE\((\d+)\)$", src,
+                                            re.M)) == pk.QUERY_SLOTS
+    assert re.findall(r"constexpr size_t kMaxSmem = (\d+);", src) == \
+        [str(pk.SMEM_BYTES)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m, ksub", [(8, 16), (64, 256), (64, 16)])
-@pytest.mark.parametrize("q", [1, 3, 16, 17])
+@pytest.mark.parametrize("q", [1, 3, 16, 17, 64])
 @pytest.mark.parametrize("t", [1, 777, 100_003])
 def test_cuda_kernel_matches_plain(m, ksub, q, t, cuda_device):
     lut, codes = _inputs(m, q, ksub, t, seed=t + q, device=cuda_device)
@@ -103,7 +200,7 @@ def test_cuda_rejects_bad_inputs(cuda_device):
     lut, codes = _inputs(8, 3, 16, 40, device=cuda_device)
     with pytest.raises(ValueError, match="lut on"):
         pk.adc_tile(lut.cpu(), codes)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="m=1024 subspaces"):
         pk.adc_tile(torch.rand((1024, 1, 16), device=cuda_device),
                     torch.zeros((4, 1024), dtype=torch.uint8,
                                 device=cuda_device))

@@ -29,18 +29,27 @@ the same bits on a second run, and against its split-precision arithmetic
 run in plain PyTorch; K2 also at 3 and 17 queries. Prints timing
 lines (CUDA events, or the host clock for service.query) with the card's
 name and power limit on every line that holds a number, each kernel's time
-per call beside its bound (the larger of its bytes over 3.35 TB/s and its
-operations over the peak for their type, the H100 SXM data sheet's: f32
-on CUDA cores 67 TFLOP/s; K1's split-precision products on the tensor
-cores, 3 TF32 products at 495 TFLOP/s, with the f32 CUDA-core bound of
-the same products beside it) and, where one PyTorch call computes the same function, that call's
-time; then, after every timed phase, each kernel's and each yardstick's
-device time (torch.profiler, ``device_ms`` / ``library_device_ms``); one
-JSON line on the kernels, and as its last line {"ok": true, "device":
-{...}}. Any failed check raises: the exit code is then non-zero and the
-last line is not printed. Needs CUDA; imports no jax.
+per call beside its bytes/operations bound (the larger of its bytes over
+3.35 TB/s and its operations over the peak for their type, the H100 SXM
+data sheet's: f32 on CUDA cores 67 TFLOP/s; K1's split-precision products
+on the tensor cores, 3 TF32 products at 495 TFLOP/s, with the f32
+CUDA-core bound of the same products beside it) and, where one PyTorch
+call computes the same function, that call's time. P6 and P7 also run at
+a K2-sized shape, one query's LUT at m=64 (64, 256) against the served
+gallery's 100,000 codes, checked bit for bit and timed beside their bound
+and yardstick (not entries of the kernels line). Then, after every timed
+phase, the launch floor (the device time of an empty kernel, printed as
+``floor: ...``) and each kernel's and each yardstick's device time
+(torch.profiler, ``device_ms`` / ``library_device_ms``); every bound is
+restated as the larger of bytes, operations and that floor (``bound_by``
+names which). One JSON line on the kernels, and as its last line {"ok":
+true, "device": {...}}. Any failed check raises: the exit code is then
+non-zero and the last line is not printed. ``--seed`` (default 0) seeds
+the inputs the script makes (the probe tool's rows keep the TPU script's
+own seeds). Needs CUDA; imports no jax.
 """
 
+import argparse
 import importlib.util
 import io
 import json
@@ -246,14 +255,14 @@ def gate_ratio(out, ref, rtol=RTOL, atol=ATOL):
     return float(((out - ref).abs() / (atol + rtol * ref.abs())).max())
 
 
-def check_k1(dev, card):
+def check_k1(dev, card, seed):
     """K1 against its plain version at the main-path shape, at a ragged P
     and at K = 17; its bits repeat from run to run, and it tracks its
     split-precision arithmetic run in plain PyTorch (products in f64)
     within a tenth of the gate."""
     from openibl_tpu_torch.ops import netvlad_kernel as nk
 
-    g = torch.Generator(device=dev).manual_seed(0)
+    g = torch.Generator(device=dev).manual_seed(seed)
     fmap = torch.randn((N_IMG, 30, 40, 512), generator=g, device=dev)
     assign_w = torch.randn((512, 64), generator=g, device=dev) * 2
     cent = torch.rand((64, 512), generator=g, device=dev)
@@ -331,12 +340,12 @@ def check_k1(dev, card):
                                              postprocess=True), bf16_entry)]
 
 
-def check_k2(dev, card):
+def check_k2(dev, card, seed):
     """K2 against its plain version: m=64, ksub=256, 1 and 16 queries, over
     1M codes, a ragged N and the served gallery's 100k, f32 and bf16 LUT."""
     from openibl_tpu_torch.ops import pq_kernel as pk
 
-    g = torch.Generator(device=dev).manual_seed(2)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
     codes_all = torch.randint(0, 256, (K2_ROWS[0], PQ_M), generator=g,
                               device=dev, dtype=torch.uint8)
     luts = {q: torch.rand((PQ_M, q, 256), generator=g, device=dev) * 0.1
@@ -488,6 +497,83 @@ def check_probes(dev, card):
     return list(out.values()), device_calls
 
 
+def check_probes_k2(dev, card, seed):
+    """P6 and P7 at a K2-sized shape, for K2's next inner loop: one query's
+    LUT at m=64, ksub=256 (64, 256) f32; P6 gathers it with the served
+    gallery's PQ codes transposed, (64, 100000) int32, P7 with one row of
+    them, (1, 100000). Each bit for bit against its plain version, timed
+    beside its plain version, yardstick and bytes bound (P7 also beside its
+    design's own tensor-core work). Timing only: these are not rows of the
+    probe tool nor entries of the kernels line. Returns their calls for
+    device_times."""
+    from openibl_tpu_torch.tools import mosaic_probe as mp
+
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    lut = torch.randn((PQ_M, 256), generator=g, device=dev)
+    codes = torch.randint(0, 256, (PQ_M, GALLERY), generator=g, device=dev,
+                          dtype=torch.int32)
+    calls = []
+    for key, kernel, plain, args in (
+            ("P6", mp.take_lut, mp.take_lut_plain, (lut, codes)),
+            ("P7", mp.onehot_dot, mp.onehot_dot_plain, (lut, codes[:1]))):
+        got, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref),
+              f"{key} kernel == plain bit for bit at K2's shape "
+              f"{[tuple(a.shape) for a in args]}")
+        what, lib = probe_library_call(key, args, {})
+
+        def call(kernel=kernel, args=args):
+            return kernel(*args)
+
+        entry = {"max_abs_err": float((got - ref).abs().max()),
+                 "ms": cuda_ms(call), "plain_ms": cuda_ms(lambda: plain(*args)),
+                 "library_ms": cuda_ms(lib), **bound(nbytes(*args, got), 0)}
+        design = ""
+        if key == "P7":  # its 3 bf16 products, the design's own work
+            entry["design_ms"] = (3 * 2 * lut.numel() * args[1].numel()
+                                  / BF16_OPS_PER_MS)
+            design = (f", its 3 bf16 products {entry['design_ms']:.4g} ms at "
+                      f"989 TFLOP/s (at most "
+                      f"{entry['bound_ms'] / entry['design_ms']:.1%} of the "
+                      f"bound by construction)")
+        print(f"timing {key} at K2's shape {[tuple(a.shape) for a in args]}: "
+              f"kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms,"
+              f" {what} {entry['library_ms']:.4f} ms, bound "
+              f"{entry['bound_ms']:.4g} ms ({entry['bound_by']}){design} "
+              f"[{card}]")
+        calls.append((f"{key} at K2's shape", call, entry))
+        calls.append((f"{key} at K2's shape, yardstick {what}", lib, entry,
+                      "library_device_ms"))
+    return calls
+
+
+def launch_floor(dev):
+    """The card's launch floor: the device time (profiler, 100 launches) of
+    csrc/mosaic_probe.cu's empty kernel, one warp and no memory access,
+    launched through ops/_build.launch. Not a port of a TPU kernel."""
+    from openibl_tpu_torch.ops._build import launch
+    from openibl_tpu_torch.tools import mosaic_probe as mp
+
+    dev = torch.empty(0, device=dev).device  # with its index
+
+    def empty():
+        launch(empty, mp._lib().mosaic_empty, dev)
+
+    empty.launches = 0
+    return device_ms(empty, reps=100)[0]
+
+
+def restate_bound(entry, floor):
+    """Raise ``entry``'s bound to the launch floor where the floor is the
+    larger (``bound_by`` then reads ``launch floor``); returns the
+    bytes/operations bound it had."""
+    raw = entry["bound_ms"], entry["bound_by"]
+    if floor > raw[0]:
+        entry.update(bound_ms=floor, bound_by="launch floor")
+    return raw
+
+
 def enqueue_times(calls, card, n=200):
     """Host time to enqueue one call of each kernel (host clock over ``n``
     calls, no synchronise inside), stored as ``enqueue_ms``: the wrapper's
@@ -507,15 +593,19 @@ def enqueue_times(calls, card, n=200):
               f"(host clock, {n} calls) [{card}]")
 
 
-def device_times(calls, card):
-    """Each kernel's device time (torch.profiler) beside its per-call time
-    and bound, stored in its entry as ``device_ms``; a yardstick's (a call
+def device_times(calls, dev, card):
+    """The launch floor first; then each kernel's device time
+    (torch.profiler) beside its per-call time and its bound restated with
+    the floor, stored in its entry as ``device_ms``; a yardstick's (a call
     of four) as ``library_device_ms`` of its probe's entry. Taken after
     every timed phase: a profiler session may leave host cost on the
     launches that follow it."""
     # the first profiler session of a process recorded no kernel on the
     # H100: one throwaway session first
     device_ms(lambda: torch.ones(1, device="cuda").add_(1), reps=1)
+    floor = launch_floor(dev)
+    check(floor is not None, "the empty kernel's device time is traced")
+    print(f"floor: empty kernel {floor:.4g} ms on the device [{card}]")
     for what, fn, entry, *key in calls:
         ms, parts = device_ms(fn)
         if key:
@@ -524,13 +614,18 @@ def device_times(calls, card):
                   f"{entry['library_ms']:.4f} ms [{card}]")
             continue
         entry["device_ms"] = ms
+        raw_ms, raw_by = restate_bound(entry, floor)
         share = "" if ms is None else (
             f", {entry['bound_ms'] / ms:.3%} of bound on the device, "
             f"{entry['bound_ms'] / entry['ms']:.3%} per call; per call "
             f"minus device {entry['ms'] - ms:.4f} ms (host work)")
+        if ms is not None and "design_ms" in entry:
+            share += (f"; its design's work caps the share at "
+                      f"{entry['bound_ms'] / entry['design_ms']:.1%}")
         print(f"device {what}: {fmt_ms(ms)} (profiler); per call "
               f"{entry['ms']:.4f} ms, bound {entry['bound_ms']:.3g} ms "
-              f"({entry['bound_by']}){share} [{card}]")
+              f"({entry['bound_by']}; bytes/operations {raw_ms:.3g} ms, "
+              f"{raw_by}){share} [{card}]")
         if len(parts) > 1:
             print(f"  its kernels: " + ", ".join(
                 f"{k} {v:.4g} ms" for k, v in parts.items()) + f" [{card}]")
@@ -700,14 +795,18 @@ def time_searches(gallery, desc, built, dev, card):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seeds the inputs the script makes")
+    seed = parser.parse_args().seed
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device "
                          "(torch.cuda.is_available() is False)")
     sys.path.insert(0, ROOT)
-    run(torch.device("cuda"))
+    run(torch.device("cuda"), seed)
 
 
-def run(dev):
+def run(dev, seed=0):
     from openibl_tpu_torch.engine.evaluator import evaluate_descriptors
     from openibl_tpu_torch.hub import vgg16_netvlad
     from openibl_tpu_torch.models.netvlad import netvlad_init_from_clusters
@@ -726,12 +825,13 @@ def run(dev):
 
     # -- phase 1: build the kernels; phase 2: each against its plain -------
     build_kernels(card)
-    k1, k1_calls = check_k1(dev, card)
-    k2, k2_calls = check_k2(dev, card)
+    k1, k1_calls = check_k1(dev, card, seed)
+    k2, k2_calls = check_k2(dev, card, seed)
     probes, probe_calls = check_probes(dev, card)
+    probe_k2_calls = check_probes_k2(dev, card, seed)
 
     # -- phase 3: the model, NetVLAD bootstrapped from its conv5 features ----
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     model = vgg16_netvlad(None, device=dev)
     check(model.net_vlad.fused and model.net_vlad.num_clusters == 64
           and model.pca_dim == DIM, "hub model: fused head, K=64, PCA 4096")
@@ -778,7 +878,7 @@ def run(dev):
           f"median {float(d2.median()):.4f} [{card}]")
 
     # -- phase 4: gallery on the device, planted rows, retrieval checks -------
-    gg = torch.Generator(device=dev).manual_seed(1)
+    gg = torch.Generator(device=dev).manual_seed(seed + 1)
     gallery = torch.randn((GALLERY, DIM), generator=gg, device=dev)
     gallery /= gallery.norm(dim=1, keepdim=True)
     rows = torch.from_numpy(rng.choice(GALLERY, PLANTED, replace=False))
@@ -883,11 +983,11 @@ def run(dev):
               f"p50 {r['p50_ms']:.3f} ms (host clock, 25 queries) [{card}]")
     time_searches(gallery, desc_k1, built, dev, card)
 
-    # -- phase 10: each kernel's host enqueue time, then its device time
-    # (after every timed phase) ---------------------------------------------
-    calls = [*k1_calls, *k2_calls, *probe_calls]
+    # -- phase 10: each kernel's host enqueue time, then the launch floor
+    # and each device time (after every timed phase) ------------------------
+    calls = [*k1_calls, *k2_calls, *probe_calls, *probe_k2_calls]
     enqueue_times(calls, card)
-    device_times(calls, card)
+    device_times(calls, dev, card)
 
     print(json.dumps({"kernels": [
         {"name": "netvlad_fused", "route": "cuda",

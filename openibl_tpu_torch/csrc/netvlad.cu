@@ -71,9 +71,13 @@
 
 #include <type_traits>
 
+#include "bf16_mma.cuh"
 #include "launch_cache.cuh"
 
 namespace {
+
+using bf16_mma::mma_bf16;
+using bf16_mma::split_bf16;
 
 constexpr int kWarpsA = 4;      // assign: warps a block, 16 rows each
 constexpr int kThreadsA = 32 * kWarpsA;
@@ -158,20 +162,6 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
   lo = __float_as_uint(v - __uint_as_float(hi)) & 0xffffe000u;
 }
 
-// (v0, v1) = p[0] + p[1] + p[2] in bf16, each part the rounding of what the
-// earlier ones leave, packed as the mma's pairs (v0 in the low half)
-__device__ __forceinline__ void split_bf16(float v0, float v1,
-                                           uint32_t (&p)[3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-    const float2 hf = __bfloat1622float2(h);
-    p[i] = *reinterpret_cast<const uint32_t*>(&h);
-    v0 -= hf.x;
-    v1 -= hf.y;
-  }
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 v0,
                                               __nv_bfloat16 v1) {
   return (uint32_t)__bfloat16_as_ushort(v0) |
@@ -182,15 +172,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));

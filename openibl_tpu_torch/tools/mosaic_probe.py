@@ -34,7 +34,14 @@ import torch
 from openibl_tpu_torch.ops._build import launch, load_library
 from openibl_tpu_torch.utils import resolve_device
 
-MAX_SLOTS = 256  # kMaxSlots in the .cu: the LUT columns a block stages
+# Copies of csrc/mosaic_probe.cu's constants (a CPU test holds each to the
+# source)
+MAX_SLOTS = 256  # kMaxSlots: the LUT columns P6 and P7 take
+GATHER_THREADS = 256  # kGatherThreads: P6's threads a block
+ONEHOT_WARPS = 4  # kOnehotWarps: P7's warps a block
+# What fills the H100 SXM (132 SMs): 8 blocks of 256 threads a SM for P6;
+# 12 warps a SM for P7 (3 blocks: 96 registers of LUT fragments a thread)
+GATHER_BLOCKS, ONEHOT_WARPS_TOTAL = 132 * 8, 132 * 12
 
 
 @functools.cache
@@ -46,8 +53,9 @@ def _lib():
                        ("mosaic_sublane_offsets", [p, p, i, i, p]),
                        ("mosaic_sublane_stride2", [p, p, i, i, p]),
                        ("mosaic_k3_dot", [p, p, p, i, i, i, p]),
-                       ("mosaic_take_lut", [p, p, p, i, i, i, p]),
-                       ("mosaic_onehot_dot", [p, p, p, i, i, i, p])):
+                       ("mosaic_take_lut", [p, p, p, i, i, i, i, i, p]),
+                       ("mosaic_onehot_dot", [p, p, p, i, i, i, i, i, i, p]),
+                       ("mosaic_empty", [p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
@@ -161,9 +169,29 @@ def take_lut_plain(lut, idx):
     return torch.take_along_dim(lut, idx.long(), dim=1)
 
 
+def take_lut_geometry(rows, cols):
+    """P6's launch: (blocks_per_row, units_per_block). A block owns one LUT
+    row and a contiguous range of ``units_per_block`` 4-column units of it;
+    a row gets as many blocks as fill the card over all rows
+    (``GATHER_BLOCKS``), but no more than one per ``GATHER_THREADS`` units,
+    so at the script's shape one block a row."""
+    units = -(-cols // 4)
+    per_row = max(1, min(-(-GATHER_BLOCKS // rows),
+                         -(-units // GATHER_THREADS)))
+    per_block = -(-units // per_row)
+    return -(-units // per_block), per_block
+
+
 def take_lut(lut, idx):
     """P6: out[r, c] = lut[r, idx[r, c]], (R, S <= 256) f32 LUT, (R, C)
-    int32 idx. On the card an index outside [0, S) gives NaN."""
+    int32 idx. On the card an index outside [0, S) gives NaN.
+
+    Replaces ``scripts/mosaic_probe.py:119`` (``probe_take_lut``). The
+    kernel spreads (LUT row, column range) over blocks
+    (``take_lut_geometry``); a block stages only its row with 16-byte
+    loads, reads 4 indices as one int4 and writes 4 outputs as one float4,
+    with no division in its loops. At the script's size it is bound by its
+    launch; at a K2-sized (64, 256) / (64, 100000), by the 51 MB it moves."""
     cuda = _on_cuda("take_lut", [lut, idx], [torch.float32, torch.int32],
                     [2, 2])
     _check_lut("take_lut", lut, idx, lut.shape[0])
@@ -172,7 +200,7 @@ def take_lut(lut, idx):
     (r, s), c = lut.shape, idx.shape[1]
     out = torch.empty((r, c), device=lut.device)
     launch(take_lut, _lib().mosaic_take_lut, lut.device, lut, idx, out, r, s,
-           c)
+           c, *take_lut_geometry(r, c))
     return out
 
 
@@ -180,10 +208,43 @@ def onehot_dot_plain(lut, idx):
     return lut[:, idx[0].long()]
 
 
+def onehot_dot_geometry(rows, cols):
+    """P7's launch: (tiles_per_warp, blocks, k_groups). Each 8-row tile of
+    the LUT (grid.x) gets ``blocks`` blocks of ``ONEHOT_WARPS`` warps; a
+    run of ``tiles_per_warp`` contiguous 16-code tiles goes to one warp
+    (``k_groups`` 1) or, where the codes are too few to give every warp
+    of ``ONEHOT_WARPS_TOTAL`` its own tile, to a whole block whose warps
+    split the 256 slots (``k_groups`` = ``ONEHOT_WARPS``, one tile a run).
+    Tiles a warp grow only once every (row tile, code tile) pair has its
+    own warp."""
+    row_tiles, code_tiles = -(-rows // 8), -(-cols // 16)
+    pairs = row_tiles * code_tiles
+    if pairs * ONEHOT_WARPS <= ONEHOT_WARPS_TOTAL:
+        return 1, code_tiles, ONEHOT_WARPS
+    per_warp = max(1, -(-pairs // ONEHOT_WARPS_TOTAL))
+    return per_warp, -(-code_tiles // (per_warp * ONEHOT_WARPS)), 1
+
+
 def onehot_dot(lut, idx):
     """P7: lut · onehot(idx)ᵀ = lut[:, idx], (R, S <= 256) f32 LUT, (1, C)
-    int32 idx, the one-hot built on chip and fed to an f32 product. On the
-    card an index outside [0, S) gives 0, as the one-hot comparison does."""
+    int32 idx, the one-hot built on chip and fed to the tensor cores. On
+    the card an index outside [0, S) gives 0, as the one-hot comparison
+    does.
+
+    Replaces ``scripts/mosaic_probe.py:141`` (``probe_onehot_dot``). The
+    kernel writes outᵀ = onehot(idx) · lutᵀ as bf16 ``mma.sync`` products
+    (``onehot_dot_geometry``): each lane sets its one-hot A fragments from
+    its codes' slots in registers, so no one-hot is ever stored; the LUT
+    enters as three bf16 parts (hi = bf16(x), mid = bf16(x - hi), lo =
+    bf16(x - hi - mid)), each into its own f32 accumulators, and the CUDA
+    cores add (hi + mid) + lo. One non-zero term per output makes that
+    exact: bit for bit ``lut[:, idx]`` for LUT entries that are 0 or of
+    magnitude in [2^-103, 3.39e38), where every part stays a normal bf16.
+    A NaN or infinite entry poisons its whole LUT row through 0 · inf:
+    exact for finite LUT entries only. -0.0 comes out as +0.0. At the
+    script's size it is bound by its launch; at a K2-sized (64, 256) x
+    (256, 100000) its 3 bf16 products (9.8 GFLOP, 0.0099 ms at 989
+    TFLOP/s) outweigh the 26 MB the function moves (0.0078 ms)."""
     cuda = _on_cuda("onehot_dot", [lut, idx], [torch.float32, torch.int32],
                     [2, 2])
     _check_lut("onehot_dot", lut, idx, 1)
@@ -192,7 +253,7 @@ def onehot_dot(lut, idx):
     (r, s), c = lut.shape, idx.shape[1]
     out = torch.empty((r, c), device=lut.device)
     launch(onehot_dot, _lib().mosaic_onehot_dot, lut.device, lut, idx, out,
-           r, s, c)
+           r, s, c, *onehot_dot_geometry(r, c))
     return out
 
 

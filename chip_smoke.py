@@ -16,6 +16,21 @@ planted rows. Then the index family over the same gallery, built on the
 card (PQ m=64, OPQ, IVF and IVFADC with 256 cells), and its served modes:
 a codes-only PQ index, IVFADC, the PQ re-rank and full-width IVF, each
 through a RetrievalService (PQ also through HTTP) with its Recall@1/5/10.
+Then the training slice at full width: a synthetic world at 480x640 (24
+places x 4 images), the EmbedNet (VGG16, K=64) from seeded weights with
+NetVLAD bootstrapped from its conv5 features, and one epoch of
+engine/pipeline.run_baseline_training (SARE-ind, tuples of 1 anchor + 1
+positive + 10 negatives, 4 a step, 3 steps): mining and evaluation through
+K1, training through the eager head, validation eval and the final PCA
+eval. It checks K1 on a mining batch, the tuples mined from K1's
+descriptors against the plain head's (up to ties), the losses, the frozen
+layers (bit-equal) and one train step on the card against the same step on
+the CPU, and prints the train step's tuples/s and the mining extraction's
+img/s (steady over five passes, with the decode and the device apart).
+Beside the served path it measures what cuDNN's TF32 (on as
+PyTorch ships it) does to an f32 descriptor at 480x640 and to the top-10
+over the 100k gallery, through the model's parts and through the entry
+point, which runs in f32 whatever the flag.
 
 Weights are random from a seed; the NetVLAD layer is bootstrapped from
 clusters of the model's own conv5 features (the package's
@@ -23,8 +38,8 @@ netvlad_init_from_clusters, as a trainer initializes it), and the PCA
 layer's bias centres the VLADs on their mean over the bootstrap images, as
 a PCA fit does, because the raw random init maps every image to nearly the
 same descriptor. Each served
-path runs with the kernels' launch counts set to 0 just before it and read
-just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
+path, and the training run, runs with the kernels' launch counts set to 0
+just before it and read just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
 the same bits on a second run, and against its split-precision arithmetic
 run in plain PyTorch; K2 also at 3 and 17 queries. Prints timing
 lines (CUDA events, or the host clock for service.query) with the card's
@@ -83,6 +98,10 @@ KERNELS = {"netvlad": ["netvlad.cu"], "pq_adc": ["pq_adc.cu"],
 # dense tensor-core operations (TF32, bf16) per ms
 HBM_BYTES_PER_MS, F32_OPS_PER_MS = 3.35e9, 67e9
 TF32_OPS_PER_MS, BF16_OPS_PER_MS = 495e9, 989e9
+# the training phase: tuples of 1 anchor + 1 positive + 10 negatives, 4 a
+# step, 3 steps, on the default synthetic world (24 places x 4 images)
+TRAIN_TS, TRAIN_NEG, TRAIN_ITERS = 4, 10, 3
+MINE_REPS = 5  # timed passes of the mining extraction, after a warm-up
 CARD = ""  # the card's name and power limit, set by run()
 
 
@@ -794,6 +813,313 @@ def time_searches(gallery, desc, built, dev, card):
               f"{ex_ms:.4f} ms, per call, CUDA events [{card}]")
 
 
+def tf32_gap(model, imgs_dev, gallery, card):
+    """(g) What cuDNN's TF32 does to an f32 descriptor at 480x640: the
+    planted images' descriptors with ``torch.backends.cudnn.allow_tf32`` as
+    PyTorch ships it (True) and off, through the model's parts called
+    directly (no f32 scope) and through the entry point ``model(x)``
+    (EmbedNetPCA.forward, inside utils.f32_precision); for each the VLAD
+    (32768-d) and PCA (4096-d) gaps against the JAX package's f32 gate, and
+    the top-10 change over the 100k gallery. The entry point's descriptor
+    must be bit-equal with the flag on and off (the check that guards the
+    f32 scope); the parts' gap is printed, not gated."""
+    from openibl_tpu_torch.ops.distance import topk_nearest
+
+    cudnn = torch.backends.cudnn
+    shipped = cudnn.allow_tf32
+
+    def parts(x):
+        vlad = model.net_vlad.descriptor(model.base(x)[1])
+        return vlad, model.pca_layer(vlad)
+
+    def run_with(flag, fn):
+        cudnn.allow_tf32 = flag
+        try:
+            with torch.inference_mode():
+                outs = [fn(imgs_dev[s:s + N_IMG])
+                        for s in range(0, len(imgs_dev), N_IMG)]
+        finally:
+            cudnn.allow_tf32 = shipped
+        if isinstance(outs[0], tuple):
+            return [torch.cat(o) for o in zip(*outs)]
+        return [None, torch.cat(outs)]
+
+    for what, fn in (("model parts, no scope", parts),
+                     ("entry point model(x)", model)):
+        on, off = run_with(True, fn), run_with(False, fn)
+        gaps = []
+        for name, a, b in (("VLAD 32768-d", on[0], off[0]),
+                           ("PCA 4096-d", on[1], off[1])):
+            if a is None:
+                continue
+            gaps.append(f"{name} max |gap| {float((a - b).abs().max()):.3g}"
+                        f" ({gate_ratio(a, b):.3g} of the rtol {RTOL} / atol "
+                        f"{ATOL} gate)")
+        d_on, i_on = topk_nearest(on[1], gallery, k=10)
+        d_off, i_off = topk_nearest(off[1], gallery, k=10)
+        changed = sum(set(a) != set(b) for a, b in zip(i_on.tolist(),
+                                                       i_off.tolist()))
+        swaps = int((i_on != i_off).sum())
+        top1 = int((i_on[:, 0] != i_off[:, 0]).sum())
+        print(f"tf32 {what}: allow_tf32 {shipped} (as shipped) vs False: "
+              + "; ".join(gaps) + f"; top-10 over {GALLERY}: {changed} of "
+              f"{len(i_on)} queries' sets changed, {swaps} rank changes, "
+              f"{top1} top-1 changes [{card}]")
+        if what.startswith("entry"):
+            check(torch.equal(on[1], off[1]),
+                  "the entry point's f32 descriptor does not depend on the "
+                  "global TF32 flag (EmbedNetPCA.forward runs in f32)")
+
+
+def tuples_tie_equal(ours, theirs, qf, gf, n_q, tie=5e-3):
+    """Mined tuples agree anchor by anchor; a differing positive, or a
+    differing negative at one rank, must be a distance tie (sq-dist gap
+    < ``tie`` in ``qf``/``gf``'s space), the JAX oracle's test
+    (tests/test_e2e.py:421-441). Returns the number of tie swaps."""
+    a_ours, a_theirs = {t[0]: t for t in ours}, {t[0]: t for t in theirs}
+    if set(a_ours) != set(a_theirs):
+        return None
+    swaps = 0
+    for a, to in a_ours.items():
+        tt = a_theirs[a]
+        ids = sorted(set(to[1:]) | set(tt[1:]))
+        d = dict(zip(ids, ((qf[a][None] - gf[np.asarray(ids) - n_q]) ** 2)
+                     .sum(1).tolist()))
+        pairs = [(to[1], tt[1])] + list(zip(sorted(to[2:], key=d.get),
+                                            sorted(tt[2:], key=d.get)))
+        for x, y in pairs:
+            if x != y:
+                if abs(d[x] - d[y]) >= tie:
+                    return None
+                swaps += 1
+    return swaps
+
+
+def train_phase(dev, card, seed):
+    """(f) The training slice at full width on the card: a synthetic world
+    at 480x640 (24 places x 4 images), the full-width EmbedNet (VGG16,
+    K=64) from seeded weights with NetVLAD bootstrapped by
+    pipeline.bootstrap_centroids, then pipeline.run_baseline_training for
+    one epoch (SARE-ind, tuples of 1 + 1 + 10, 4 a step, 3 steps),
+    validation eval and the final PCA eval. K1's count is 0 just before the
+    run and read just after. Then its checks: K1 on a mining batch, the
+    tuples mined from K1's descriptors against the plain head's, the
+    losses, the frozen layers, one step on the card against the CPU.
+    Returns K1's launches in the run."""
+    import copy
+
+    from openibl_tpu_torch.config import DataConfig, TrainConfig
+    from openibl_tpu_torch.data.loader import ImageSource
+    from openibl_tpu_torch.data.sampler import TupleSampler
+    from openibl_tpu_torch.data.synthetic import SyntheticDataset
+    from openibl_tpu_torch.data.transforms import TestTransform
+    from openibl_tpu_torch.engine import pipeline
+    from openibl_tpu_torch.engine.trainer import Trainer
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.parallel.extract import make_extract_fn
+    from openibl_tpu_torch.utils import f32_precision
+    from openibl_tpu_torch.utils.profiling import PhaseTimer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        world = SyntheticDataset(osp.join(tmp, "data", "synthetic"),
+                                 img_size=(H, W), seed=seed)
+        print(f"phase train: synthetic world at {H}x{W}, "
+              f"{len(world.q_train)} train queries, {len(world.db_train)} "
+              f"train gallery images, in {time.perf_counter() - t0:.2f} s "
+              f"(host) [{card}]")
+        cfg = TrainConfig(
+            data=DataConfig(dataset="synthetic", scale=None,
+                            data_dir=osp.join(tmp, "data"), height=H,
+                            width=W, test_batch_size=N_IMG),
+            loss_type="sare_ind", tuple_size=TRAIN_TS, neg_num=TRAIN_NEG,
+            iters=TRAIN_ITERS, epochs=1, print_freq=100, seed=seed,
+            logs_dir=osp.join(tmp, "logs"), init_dir=osp.join(tmp, "logs"))
+        dataset = pipeline.load_dataset(cfg)
+        t0 = time.perf_counter()
+        # the run's own initial state: seeded weights, and the centroid
+        # cache bootstrap_centroids writes here and the run reads
+        before = {k: v.detach().clone() for k, v in pipeline.build_model(
+            cfg, dataset, dev).state_dict().items()}
+        torch.cuda.synchronize()
+        print(f"phase train: seeded EmbedNet (K=64) + bootstrap_centroids "
+              f"in {time.perf_counter() - t0:.2f} s [{card}]")
+
+        losses = []
+        step = Trainer.step
+
+        def counted_step(self, images):
+            losses.append(step(self, images))
+            return losses[-1]
+
+        timer = PhaseTimer(dev)
+        Trainer.step = counted_step
+        t0 = time.perf_counter()
+        try:
+            nk.netvlad_fused.launches = 0  # the training path starts
+            model, final, history = pipeline.run_baseline_training(
+                cfg, device=dev, verbose=False, timer=timer)
+            launches = nk.netvlad_fused.launches  # the training path ends
+        finally:
+            Trainer.step = step
+        print(f"phase train: run_baseline_training in "
+              f"{time.perf_counter() - t0:.2f} s; val recall@1/5/10 "
+              f"{[list(map(float, r)) for _, r in history]}, PCA test "
+              f"recall@1/5/10 {list(map(float, final))}; K1 launches "
+              f"{launches} [{card}]")
+        print("  " + timer.summary().replace("\n", "\n  ") + f" [{card}]")
+        check(launches > 0, f"K1 launched {launches} times on the training "
+                            f"path (mining, validation, PCA fit, test)")
+        losses = [float(x) for x in losses]
+        check(len(losses) == TRAIN_ITERS and all(np.isfinite(losses)),
+              f"{len(losses)} train steps of {TRAIN_TS} tuples x "
+              f"{2 + TRAIN_NEG} images, every loss finite: {losses}")
+        check(len(history) == 1 and len(final) == 3
+              and all(0 <= float(r) <= 1 for r in final),
+              "one validation eval and Recall@1/5/10 of the PCA test eval")
+        after = model.state_dict()
+        frozen = [k for k in before if k.startswith("base.conv")
+                  and not k.startswith("base.conv5")]
+        moved = [k for k in before if k not in frozen]
+        check(all(torch.equal(before[k], after[k]) for k in frozen)
+              and all(not torch.equal(before[k], after[k]) for k in moved),
+              f"conv1_1..conv4_3 bit-equal to their values before training "
+              f"({len(frozen)} tensors); conv5_* and NetVLAD moved "
+              f"({len(moved)} tensors)")
+        # K1 on one mining batch of the trained model
+        src = ImageSource(dataset.q_train + dataset.db_train,
+                          dataset.images_dir,
+                          TestTransform(H, W, device_normalize=True))
+        n_q = len(dataset.q_train)
+        batch = torch.from_numpy(np.stack(
+            [src.load(n_q + i) for i in range(N_IMG)])).to(dev)
+        with torch.inference_mode(), f32_precision():
+            fmap = model.base(batch)[1]
+            nv = model.net_vlad
+            got = nk.netvlad_fused(fmap, nv.assign_w, nv.centroids,
+                                   postprocess=True)
+            ref = nk.netvlad_plain(fmap, nv.assign_w, nv.centroids,
+                                   postprocess=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        check(True, f"K1 == plain head on a mining batch {tuple(fmap.shape)}"
+                    f" of the trained model, max_abs_err "
+                    f"{float((got - ref).abs().max()):.3g} ({gate_ratio(got, ref):.4f}"
+                    f" of the rtol {RTOL} / atol {ATOL} gate)")
+
+        # tuples mined from K1's descriptors and from the plain head's
+        subset = np.arange(n_q)
+        mined, feats = [], []
+        for view in (pipeline.eval_view(model), model):
+            g = pipeline._extract(view, ImageSource(
+                dataset.db_train, dataset.images_dir, src.transform), cfg,
+                "vlad")
+            q = pipeline._extract(view, ImageSource(
+                dataset.q_train, dataset.images_dir, src.transform), cfg,
+                "vlad")
+            sampler = TupleSampler(n_q, len(dataset.db_train),
+                                   dataset.train_pos, dataset.train_neg,
+                                   neg_num=TRAIN_NEG, neg_pool=cfg.neg_pool,
+                                   seed=cfg.seed)
+            sampler.set_epoch(cfg.seed)
+            mined.append(sampler.refresh(q, g, subset))
+            feats.append((q.cpu().numpy(), g.cpu().numpy()))
+        swaps = tuples_tie_equal(mined[0], mined[1], *feats[1], n_q)
+        check(swaps is not None,
+              f"tuples mined from K1's descriptors == from the plain head's "
+              f"for {n_q} anchors x (1 + {TRAIN_NEG}), up to ties (sq-dist "
+              f"gap < 5e-3): {swaps} tie swaps")
+
+        # the mining extraction's rate, steady: the 32-image train gallery
+        # through pipeline._extract (BatchLoader, eval_view) MINE_REPS times
+        # after a warm-up pass; beside it the decode alone (host, one
+        # thread, as BatchLoader's producer) and the device alone (the
+        # decoded batches, H2D included)
+        emodel = pipeline.eval_view(model)
+        gsrc = ImageSource(dataset.db_train, dataset.images_dir,
+                           src.transform)
+        n_g = len(gsrc)
+        passes = []
+        for _ in range(1 + MINE_REPS):
+            t0 = time.perf_counter()
+            pipeline._extract(emodel, gsrc, cfg, "vlad")
+            torch.cuda.synchronize()
+            passes.append(time.perf_counter() - t0)
+        passes = passes[1:]
+        t0 = time.perf_counter()
+        for _ in range(MINE_REPS):
+            decoded = [gsrc.load(i) for i in range(n_g)]
+        decode_s = (time.perf_counter() - t0) / MINE_REPS
+        fwd = make_extract_fn(emodel)
+        batches = [np.stack(decoded[s:s + N_IMG])
+                   for s in range(0, n_g, N_IMG)]
+        with torch.no_grad():
+            dev_ms = cuda_ms(lambda: [fwd(torch.from_numpy(b).to(dev))
+                                      for b in batches],
+                             reps=MINE_REPS, warmup=1)
+        print(f"timing mining extraction {H}x{W} batch {N_IMG}, {n_g} "
+              f"gallery images, {MINE_REPS} passes after a warm-up: "
+              f"{n_g / statistics.median(passes):.2f} img/s end to end "
+              f"(pipeline._extract, host clock to a synchronize, PNG decode "
+              f"included; passes {', '.join(f'{x:.4f}' for x in passes)} "
+              f"s); decode alone {n_g / decode_s:.2f} img/s (PIL, one "
+              f"thread, host clock); device alone "
+              f"{n_g / dev_ms * 1e3:.2f} img/s (VGG16 f32 + K1 on decoded "
+              f"batches, H2D included, CUDA events) [{card}]")
+        del emodel, decoded, batches
+
+        # one step on the card against the same step on the CPU
+        tup = np.stack([src.load(i) for i in mined[1][0]])[None]
+        steps, models_ = [], []
+        t0 = time.perf_counter()
+        for where in (dev, torch.device("cpu")):
+            m = copy.deepcopy(model).to(where)
+            tr = Trainer(m, loss_type=cfg.loss_type, margin=cfg.margin,
+                         lr=cfg.lr, momentum=cfg.momentum,
+                         weight_decay=cfg.weight_decay)
+            tr.init()
+            steps.append(float(tr.step(tup)))
+            models_.append({k: v.detach().cpu() for k, v in
+                            m.state_dict().items()})
+        print(f"  card vs CPU step on one tuple {tup.shape}: "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
+        rel = abs(steps[0] - steps[1]) / abs(steps[1])
+        ok, worst = rel < 1e-4, 0.0
+        for k in moved:
+            old = after[k].detach().cpu()
+            a, b = models_[0][k], models_[1][k]
+            ulp = float(np.spacing(np.float32(old.abs().max())))
+            ok = ok and torch.allclose(a, b, rtol=1e-3, atol=1e-7)
+            up_a, up_b = a - old, b - old
+            err = float(((up_a - up_b).abs() / (1e-3 * up_b.abs().max()
+                                                 + ulp + 1e-3 * up_b.abs()))
+                        .max())
+            worst = max(worst, err)
+        check(ok and worst <= 1.0,
+              f"one train step on the card (f32, TF32 off) == on the CPU: "
+              f"loss {steps[0]:.7g} vs {steps[1]:.7g} (rel {rel:.2g} < 1e-4),"
+              f" updated parameters within rtol 1e-3, updates at "
+              f"{worst:.3g} of rtol 1e-3 of each layer's largest")
+
+        # the train step's rate: 4 tuples x 12 images a step, on a copy
+        m = copy.deepcopy(model)
+        tr = Trainer(m, loss_type=cfg.loss_type, margin=cfg.margin,
+                     lr=cfg.lr)
+        tr.init()
+        tuples = np.stack([np.stack([src.load(i) for i in t])
+                           for t in mined[1][:TRAIN_TS]])
+        ms = cuda_ms(lambda: tr.step(tuples), reps=5, warmup=1)
+        print(f"timing train step sare_ind {H}x{W} f32, {TRAIN_TS} tuples x "
+              f"{2 + TRAIN_NEG} images (conv5 + NetVLAD trained): "
+              f"{TRAIN_TS / ms * 1e3:.3f} tuples/s "
+              f"(sare_train_tuples_per_sec_480x640_float32_ts4; {ms:.2f} "
+              f"ms/step, CUDA events, H2D of the uint8 batch included) "
+              f"[{card}]")
+        del m, tr, model
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -813,12 +1139,13 @@ def run(dev, seed=0):
     from openibl_tpu_torch.ops import netvlad_kernel as nk
     from openibl_tpu_torch.ops.distance import topk_nearest
     from openibl_tpu_torch.serving import RetrievalService
+    from openibl_tpu_torch.utils import f32_precision
 
     global CARD
     card = CARD = card_line()
     print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the global TF32 flags stay as PyTorch ships them: the port's entry
+    # points run their f32 work in f32 on their own (utils.f32_precision)
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name} "
           f"[{card}]")
@@ -836,7 +1163,9 @@ def run(dev, seed=0):
     check(model.net_vlad.fused and model.net_vlad.num_clusters == 64
           and model.pca_dim == DIM, "hub model: fused head, K=64, PCA 4096")
     boot = torch.from_numpy(scenes(rng, BOOT_IMGS)).to(dev)
-    with torch.inference_mode():
+    # the model's parts are called directly here, outside the entry
+    # point's f32 scope: give them theirs
+    with torch.inference_mode(), f32_precision():
         _, f5 = model.base(boot[:4])
     feats = f5.reshape(-1, 512).float().cpu().numpy()
     feats /= np.linalg.norm(feats, axis=1, keepdims=True)
@@ -849,7 +1178,7 @@ def run(dev, seed=0):
     # 0 (b = -mean·w, as a PCA fit sets it). Without it the random
     # projection keeps the VLADs' shared part, and all descriptors lie
     # closer together than PQ at m=64 can resolve
-    with torch.inference_mode():
+    with torch.inference_mode(), f32_precision():
         vlad = torch.cat([model.net_vlad.descriptor(model.base(
             boot[s:s + N_IMG])[1]) for s in range(0, BOOT_IMGS, N_IMG)])
         shift = -(vlad.mean(dim=0) @ model.pca_layer.w)
@@ -897,6 +1226,9 @@ def run(dev, seed=0):
                                    print_results=False)
     check(recalls[0] == 1.0,
           f"evaluate_descriptors Recall@1/5/10 = {list(recalls)}")
+
+    # -- phase 4b (g): cuDNN's TF32 on the f32 descriptor --------------------
+    tf32_gap(model, imgs_dev, gallery, card)
 
     # -- phase 5 (b): the index family, built on the card --------------------
     built = build_indexes(gallery, desc_k1, dev, card)
@@ -982,6 +1314,11 @@ def run(dev, seed=0):
         print(f"timing service.query {mode} batch 1, top-10 of {GALLERY}: "
               f"p50 {r['p50_ms']:.3f} ms (host clock, 25 queries) [{card}]")
     time_searches(gallery, desc_k1, built, dev, card)
+    del built
+    torch.cuda.empty_cache()
+
+    # -- phase 9b (f): the training slice ------------------------------------
+    train_launches = train_phase(dev, card, seed)
 
     # -- phase 10: each kernel's host enqueue time, then the launch floor
     # and each device time (after every timed phase) ------------------------
@@ -993,7 +1330,9 @@ def run(dev, seed=0):
         {"name": "netvlad_fused", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/netvlad.cu",
          "replaces": "openibl_tpu/ops/netvlad_kernel.py:74",
-         "launches": k1_launches, **k1},
+         "launches": k1_launches + train_launches,
+         "launches_by_path": {"serve_exact": k1_launches,
+                              "train": train_launches}, **k1},
         {"name": "pq_adc", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/pq_adc.cu",
          "replaces": "openibl_tpu/ops/pq_kernel.py:84",

@@ -1,0 +1,60 @@
+"""Typed configuration objects (port of openibl_tpu/config.py).
+
+Plain dataclasses with the JAX package's fields and defaults. Canonical
+values are the published recipe. ``TrainConfig`` drives
+``engine.pipeline.run_baseline_training``; ``SFRSConfig`` and ``EvalConfig``
+come with their workflows (ROADMAP Queue 1 items 10 and 8).
+"""
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class DataConfig:
+    dataset: str = "pitts"
+    scale: Optional[str] = "30k"
+    data_dir: str = "data"
+    height: int = 480
+    width: int = 640
+    test_batch_size: int = 32
+    workers: int = 2  # prefetch depth
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    arch: str = "vgg16"
+    train_layers: str = "conv5"
+    num_clusters: int = 64
+    loss_type: str = "triplet"  # triplet | sare_ind | sare_joint
+    use_vlad: bool = True  # False trains on the global max-pool feature
+    margin_sq: float = 0.1  # margin = sqrt(margin_sq)
+    tuple_size: int = 1  # tuples per train step
+    neg_num: int = 10
+    neg_pool: int = 1000
+    cache_size: int = 1000
+    iters: int = 0  # >0 caps train iterations per subset (reference --iters)
+    epochs: int = 5
+    lr: float = 1e-3
+    momentum: float = 0.9
+    weight_decay: float = 1e-3
+    step_size: int = 5
+    gamma: float = 0.5
+    eval_step: int = 1
+    seed: int = 43
+    pca_dim: int = 4096
+    whiten: bool = True  # PCA whitening at the final test (reference --nowhiten)
+    logs_dir: str = "logs"
+    init_dir: str = "logs"
+    resume: str = ""
+    print_freq: int = 10
+    compute_dtype: str = "float32"  # or "bfloat16"
+    remat: bool = False  # recompute backbone activations in the backward
+    device_jitter: bool = False  # ColorJitter on the device: ROADMAP item 11
+    augment: bool = True  # False disables ColorJitter (deterministic pixels)
+
+    @property
+    def margin(self):
+        return self.margin_sq ** 0.5
+

@@ -1,11 +1,10 @@
-"""Host-side input pipeline: image source + thread-prefetched batch loader.
+"""Host-side input pipeline: image source + thread-prefetched batch loaders.
 
-The inference half of openibl_tpu/data/loader.py (``ImageSource``,
-``_prefetch``, ``BatchLoader``), copied so that the port does not import the
-JAX package: PIL decode overlaps device work through one prefetch thread
-(PIL releases the GIL while it decodes and resizes). ``TupleLoader`` and
-``PaddedBatchLoader`` come with training and the masked Tokyo path (ROADMAP
-Queue 1 items 9 and 8).
+``ImageSource``, ``_prefetch``, ``BatchLoader`` and ``TupleLoader`` of
+openibl_tpu/data/loader.py, copied so that the port does not import the JAX
+package: PIL decode overlaps device work through one prefetch thread (PIL
+releases the GIL while it decodes and resizes). ``PaddedBatchLoader`` comes
+with the masked Tokyo path (ROADMAP Queue 1 item 8).
 """
 
 import os.path as osp
@@ -117,6 +116,35 @@ class BatchLoader:
                 idx = np.concatenate([idx, np.repeat(idx[-1:], bs - count)])
             imgs = np.stack([self.source.load(int(i)) for i in idx])
             yield imgs, idx, count
+
+    def __iter__(self):
+        return _prefetch(self._gen(), self.prefetch_depth)
+
+
+class TupleLoader:
+    """Iterate mined tuples: yields (tuple_size, G, H, W, 3) image stacks.
+
+    The index tuples are global indices into q_train + db_train (the
+    reference sampler's convention). A trailing partial batch is dropped.
+    """
+
+    def __init__(self, source: ImageSource, tuples, tuple_size=1, prefetch=2):
+        self.source = source
+        self.tuples = tuples
+        self.tuple_size = tuple_size
+        self.prefetch_depth = prefetch
+
+    def __len__(self):
+        return len(self.tuples) // self.tuple_size
+
+    def _gen(self):
+        t = self.tuple_size
+        for s in range(0, len(self.tuples) - t + 1, t):
+            batch = self.tuples[s : s + t]
+            yield np.stack([
+                np.stack([self.source.load(int(i)) for i in tup])
+                for tup in batch
+            ])
 
     def __iter__(self):
         return _prefetch(self._gen(), self.prefetch_depth)

@@ -1,16 +1,19 @@
-"""Recall@N evaluation from descriptors (port of
-openibl_tpu/engine/evaluator.py, single device, no rerank).
+"""Recall@N evaluation (port of openibl_tpu/engine/evaluator.py, single
+device, unmasked, no rerank).
 
 The kNN runs on the descriptors' device (ops.distance.topk_nearest); spatial
-NMS and the recall scan are host index math. The mesh-sharded kNN and the
-k-reciprocal rerank come with ROADMAP Queue 1 items 12 and 10.
+NMS and the recall scan are host index math. ``Evaluator.evaluate_sources``
+extracts both sides from image sources (with the model's head, the fused
+kernel on the card) and scores them. The mesh-sharded kNN, the
+k-reciprocal rerank and the loader-driven masked ``evaluate`` come with
+ROADMAP Queue 1 items 12, 10 and 8.
 """
 
 import numpy as np
 import torch
 
 from openibl_tpu_torch.ops.distance import topk_nearest
-from openibl_tpu_torch.utils import to_numpy
+from openibl_tpu_torch.utils import f32_precision, to_numpy
 
 
 def spatial_nms(pred, db_ids, top_n):
@@ -55,8 +58,9 @@ def evaluate_descriptors(q_feats, g_feats, ground_truth, gallery_pids=None,
         raise ValueError("nms=True requires gallery_pids")  # before the kNN
     k_need = max(topk) * (12 if nms else 1)
     g = torch.as_tensor(g_feats)
-    _, idx = topk_nearest(torch.as_tensor(q_feats), g,
-                          k=min(k_need, g.shape[0]))
+    with f32_precision():  # the JAX kNN's Precision.HIGHEST
+        _, idx = topk_nearest(torch.as_tensor(q_feats), g,
+                              k=min(k_need, g.shape[0]))
     recalls = recalls_from_ranks(to_numpy(idx), ground_truth, gallery_pids,
                                  topk, nms)
     if print_results:
@@ -64,3 +68,30 @@ def evaluate_descriptors(q_feats, g_feats, ground_truth, gallery_pids=None,
         for k, r in zip(topk, recalls):
             print(f"  top-{k:<4}{r:12.1%}")
     return recalls
+
+
+class Evaluator:
+    """Binds a model (e.g. ``pipeline.eval_view`` of the trained EmbedNet)
+    and the feature it reads; evaluates image sources end to end."""
+
+    def __init__(self, model, feature="vlad"):
+        self.model = model
+        self.feature = feature
+
+    def evaluate_sources(self, q_source, db_source, ground_truth, pca=None,
+                         batch_size=32, prefetch=2, print_results=True):
+        """Extract queries and gallery (kept on the model's device), then
+        Recall@1/5/10."""
+        from openibl_tpu_torch.data.loader import BatchLoader
+        from openibl_tpu_torch.parallel.extract import extract_features
+
+        feats = [
+            extract_features(self.model,
+                             BatchLoader(src, batch_size=batch_size,
+                                         prefetch=prefetch),
+                             pca=pca, feature=self.feature,
+                             device_output=True)
+            for src in (q_source, db_source)
+        ]
+        return evaluate_descriptors(*feats, ground_truth,
+                                    print_results=print_results)

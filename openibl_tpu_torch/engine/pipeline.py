@@ -1,0 +1,366 @@
+"""Baseline training workflow: triplet / SARE with hard-negative mining
+(port of openibl_tpu/engine/pipeline.py:49-430, the baseline half, one
+device).
+
+Per epoch: the StepLR rate, then for each shuffled subset of the training
+queries
+
+  1. mining extraction through the fused NetVLAD head (kernel K1 on the
+     card, ``eval_view``): the gallery and the subset's anchors, kept on the
+     device;
+  2. the sampler's refresh, mined on the device;
+  3. training over the mined tuples through the eager head (``Trainer``);
+
+then a validation eval (K1 again), a checkpoint, and strict
+best-by-Recall@5 selection. The run ends with PCA-whitening fitted on the
+best model's training descriptors and a test-split eval through it.
+
+The JAX package's draws are kept: subsets from ``RandomState(seed +
+epoch)``, the sampler's from ``RandomState(seed + epoch)``, jitter from
+(seed, epoch, subset), so on one dataset both packages see the same
+subsets, candidates and pixels. Checkpoints are the JAX package's .npz
+(parameters in its layouts); the port's SGD momentum sits beside them.
+SFRS training, ``run_eval``, multi-GPU and on-device jitter come with
+ROADMAP Queue 1 items 10, 8, 12 and 11.
+"""
+
+import os
+import os.path as osp
+
+import numpy as np
+import torch
+
+from openibl_tpu_torch import data as datasets
+from openibl_tpu_torch import models
+from openibl_tpu_torch.data.loader import (
+    BatchLoader, ImageSource, TupleLoader,
+)
+from openibl_tpu_torch.data.sampler import TupleSampler
+from openibl_tpu_torch.data.transforms import TestTransform, TrainTransform
+from openibl_tpu_torch.engine.evaluator import Evaluator
+from openibl_tpu_torch.engine.trainer import Trainer
+from openibl_tpu_torch.models import convert
+from openibl_tpu_torch.ops import pca as pca_ops
+from openibl_tpu_torch.ops.kmeans import kmeans
+from openibl_tpu_torch.parallel.extract import extract_features
+from openibl_tpu_torch.utils import (array_file, f32_precision, read_arrays,
+                                     resolve_device, write_arrays)
+from openibl_tpu_torch.utils.checkpoint import read_checkpoint, save_checkpoint
+from openibl_tpu_torch.utils.profiling import PhaseTimer
+from openibl_tpu_torch.utils.watchdog import Watchdog
+
+# warns loudly on hung device phases
+_WATCHDOG = Watchdog(warn_after=600.0)
+
+
+def _apply_iters_cap(tuples, iters, tuple_size):
+    """Reference --iters semantics: exactly ``iters`` train iterations per
+    subset; a short tuple list repeats, not truncates."""
+    if iters <= 0 or not tuples:
+        return tuples
+    need = iters * tuple_size
+    reps = -(-need // len(tuples))  # ceil
+    return (list(tuples) * reps)[:need]
+
+
+# ---------------------------------------------------------------------------
+# setup helpers
+# ---------------------------------------------------------------------------
+
+def load_dataset(cfg):
+    root = osp.join(cfg.data.data_dir, cfg.data.dataset)
+    kwargs = {}
+    if cfg.data.dataset == "pitts":
+        kwargs["scale"] = cfg.data.scale
+    return datasets.create(cfg.data.dataset, root, **kwargs)
+
+
+def bootstrap_centroids(cfg, dataset, base, n_images=500, per_image=100,
+                        seed=43):
+    """NetVLAD centroid bootstrap: conv5 descriptors sampled from random
+    train images (``base`` on its device, f32 maps), k-means on the same
+    device. Returns (centroids (K, C), descriptors (N, C)) numpy f32.
+
+    Reads or writes the JAX package's cache
+    ({arch}_{dataset}_{k}_desc_cen.hdf5 with 'centroids' + 'descriptors';
+    .npz under the same name where h5py is not installed,
+    ``utils.array_file``)."""
+    cache = array_file(osp.join(
+        cfg.init_dir,
+        f"{cfg.arch}_{cfg.data.dataset}_{cfg.num_clusters}_desc_cen.hdf5"))
+    if osp.isfile(cache):
+        return tuple(read_arrays(cache, ("centroids", "descriptors")))
+
+    items = sorted(set(dataset.q_train) | set(dataset.db_train))
+    rng = np.random.RandomState(seed)
+    pick = rng.choice(len(items), min(n_images, len(items)), replace=False)
+    src = ImageSource(
+        [items[i] for i in pick], root=dataset.images_dir,
+        transform=TestTransform(cfg.data.height, cfg.data.width),
+    )
+    dev = next(base.parameters()).device
+    descs = []
+    with torch.no_grad(), f32_precision():
+        for images, _, count in BatchLoader(src,
+                                            batch_size=cfg.data.test_batch_size,
+                                            prefetch=cfg.data.workers):
+            fmap = base(torch.from_numpy(images).to(dev))[1][:count]
+            fmap = fmap.float().cpu().numpy()
+            n, h, w, c = fmap.shape
+            flat = fmap.reshape(n, h * w, c)
+            flat = flat / np.maximum(
+                np.linalg.norm(flat, axis=-1, keepdims=True), 1e-12)
+            for img_desc in flat:
+                sample = rng.choice(h * w, min(per_image, h * w),
+                                    replace=False)
+                descs.append(img_desc[sample])
+        descs = np.concatenate(descs).astype(np.float32)
+        centroids, _ = kmeans(torch.from_numpy(descs).to(dev),
+                              cfg.num_clusters, iters=100, seed=seed)
+    os.makedirs(cfg.init_dir, exist_ok=True)
+    write_arrays(cache, {"descriptors": descs, "centroids": centroids})
+    return centroids, descs
+
+
+def build_model(cfg, dataset, device, rng_seed=0):
+    """Backbone + NetVLAD with centroid init, on ``device``, layers before
+    ``cfg.train_layers`` frozen. Returns the EmbedNet.
+
+    The backbone starts from the MatConvNet VGG16 the reference trains from
+    when ``{init_dir}/vd16_offtheshelf_conv5_3_max.pth`` exists (loaded
+    weights-only), from a seeded random init otherwise."""
+    gen = torch.Generator().manual_seed(rng_seed)
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+        else torch.float32
+    base = models.create(cfg.arch, compute_dtype=dtype, generator=gen)
+    nv = models.NetVLAD(num_clusters=cfg.num_clusters, generator=gen)
+    model = models.create("embednet", base=base, net_vlad=nv)
+    matconvnet = osp.join(cfg.init_dir, "vd16_offtheshelf_conv5_3_max.pth")
+    if osp.isfile(matconvnet):
+        state = convert.vgg16_state_from_torch(
+            convert.load_torch_checkpoint(matconvnet))
+        model.load_state_dict(state, strict=False)
+    base.freeze(cfg.train_layers)
+    model.to(device, memory_format=torch.channels_last)
+    clsts, traindescs = bootstrap_centroids(cfg, dataset, base)
+    init = models.netvlad_init_from_clusters(clsts, traindescs)
+    with torch.no_grad():
+        nv.assign_w.copy_(init["assign_w"])
+        nv.centroids.copy_(init["centroids"])
+    return model
+
+
+def eval_view(model):
+    """``model`` with the fused NetVLAD head (K1) for no-grad extraction
+    and eval when its parameters live on a CUDA device (the JAX package
+    switches its fused head on for the TPU the same way); ``model`` itself
+    otherwise. The view shares every parameter with ``model``."""
+    nv = model.net_vlad
+    if nv.fused or next(model.parameters()).device.type != "cuda":
+        return model
+    fused = models.NetVLAD(nv.num_clusters, nv.dim, nv.normalize_input,
+                           fused=True)
+    fused.assign_w, fused.centroids = nv.assign_w, nv.centroids
+    return models.EmbedNet(base=model.base, net_vlad=fused)
+
+
+def _use_device_jitter(cfg):
+    return cfg.device_jitter and cfg.augment
+
+
+def make_sources(cfg, dataset):
+    """uint8 images (the mean is subtracted on the device); the train
+    transform's jitter stream is seeded and re-seeded per subset.
+    ``augment=False`` turns ColorJitter off."""
+    train_tf = TrainTransform(cfg.data.height, cfg.data.width,
+                              jitter=cfg.augment and not cfg.device_jitter,
+                              device_normalize=True, seed=cfg.seed)
+    test_tf = TestTransform(cfg.data.height, cfg.data.width,
+                            device_normalize=True)
+    train_items = dataset.q_train + dataset.db_train
+    return {
+        "tuple": ImageSource(train_items, dataset.images_dir, train_tf),
+        "q_train": ImageSource(dataset.q_train, dataset.images_dir, test_tf),
+        "db_train": ImageSource(dataset.db_train, dataset.images_dir, test_tf),
+        "q_val": ImageSource(dataset.q_val, dataset.images_dir, test_tf),
+        "db_val": ImageSource(dataset.db_val, dataset.images_dir, test_tf),
+        "q_test": ImageSource(dataset.q_test, dataset.images_dir, test_tf),
+        "db_test": ImageSource(dataset.db_test, dataset.images_dir, test_tf),
+    }
+
+
+def _subset_splits(n_query, cache_size, epoch, step_size, seed,
+                   tuple_size=1):
+    """Shuffled query subsets of (possibly grown) cache size per epoch. A
+    cache_size below tuple_size is clamped to the full query set (else no
+    subset mines one batch and training takes no step)."""
+    if cache_size < tuple_size or cache_size > n_query:
+        cache_size = n_query
+    size = min(max(cache_size * (2 ** (epoch // step_size)), 1), n_query)
+    rng = np.random.RandomState(seed + epoch)
+    perm = rng.permutation(n_query)
+    # each subset is SORTED: extraction returns features in ascending index
+    # order, and the sampler pairs feature row r with subset[r]
+    return [np.sort(perm[s : s + size]) for s in range(0, n_query, size)]
+
+
+def _extract(model, source, cfg, feature, indices=None, pca=None):
+    """Descriptors of ``source`` (rows in ascending index order), kept on
+    the model's device."""
+    loader = BatchLoader(source, indices, cfg.data.test_batch_size,
+                         prefetch=cfg.data.workers)
+    return extract_features(model, loader, pca=pca, feature=feature,
+                            device_output=True)
+
+
+def _load_params(model, params):
+    """A JAX-layout parameter tree into ``model``, in place."""
+    model.load_state_dict(convert.params_from_jax(params))
+
+
+# ---------------------------------------------------------------------------
+# baseline training (triplet / SARE)
+# ---------------------------------------------------------------------------
+
+def run_baseline_training(cfg, device="cuda", mesh=None, verbose=True,
+                          timer=None):
+    """Train, select the best epoch, fit PCA and evaluate the test split.
+
+    Runs on ``device`` (the card by default; without one this raises
+    unless ``device="cpu"``). Returns (model, final test recalls, history
+    [(epoch, val recalls)]); the model holds the best epoch's parameters.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device training is not ported to openibl_tpu_torch yet: "
+            "ROADMAP Queue 1 item 12")
+    device = resolve_device(device)
+    timer = timer if timer is not None else PhaseTimer(device)
+    dataset = load_dataset(cfg)
+    sources = make_sources(cfg, dataset)
+    model = build_model(cfg, dataset, device)
+    emodel = eval_view(model)
+    feature = "vlad" if cfg.use_vlad else "pool"
+    evaluator = Evaluator(emodel, feature=feature)
+
+    trainer = Trainer(
+        model, loss_type=cfg.loss_type, margin=cfg.margin, lr=cfg.lr,
+        momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+        use_pool_feature=not cfg.use_vlad, remat=cfg.remat,
+        device_jitter=_use_device_jitter(cfg),
+    )
+    trainer.init()
+    sampler = TupleSampler(
+        len(dataset.q_train), len(dataset.db_train),
+        dataset.train_pos, dataset.train_neg,
+        neg_num=cfg.neg_num, neg_pool=cfg.neg_pool, seed=cfg.seed,
+    )
+
+    start_epoch, best_recall5 = 0, 0.0
+    if cfg.resume:
+        tree, meta = read_checkpoint(cfg.resume)
+        _load_params(model, tree["params"])
+        if "torch_sgd" in tree:  # a JAX checkpoint restarts the momentum
+            trainer.load_momentum_state(
+                convert.params_from_jax(tree["torch_sgd"]["momentum"]))
+        sampler.neg_cache = np.asarray(tree["neg_cache"])
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        best_recall5 = float(meta.get("best_recall5", 0.0))
+
+    bs, pf = cfg.data.test_batch_size, cfg.data.workers
+    history = []
+    for epoch in range(start_epoch, cfg.epochs):
+        sampler.set_epoch(cfg.seed + epoch)
+        trainer.set_epoch_lr(epoch, cfg.step_size, cfg.gamma)
+        for subid, subset in enumerate(
+            _subset_splits(len(dataset.q_train), cfg.cache_size, epoch,
+                           cfg.step_size, cfg.seed, cfg.tuple_size)
+        ):
+            with _WATCHDOG.watch(f"mining extraction epoch {epoch}-{subid}"), \
+                    timer.phase("mining_extract"):
+                g_feats = _extract(emodel, sources["db_train"], cfg, feature)
+                q_feats = _extract(emodel, sources["q_train"], cfg, feature,
+                                   indices=subset)
+            with timer.phase("mining_refresh"):
+                tuples = sampler.refresh(q_feats, g_feats, subset)
+            # the tuples are host lists now: free the (G, D) gallery before
+            # training needs the memory (~11 GB at Pitts250k, 32768-d)
+            del g_feats, q_feats
+            tuples = _apply_iters_cap(tuples, cfg.iters, cfg.tuple_size)
+            sources["tuple"].transform.reseed(cfg.seed, epoch, subid)
+            loader = TupleLoader(sources["tuple"], tuples, cfg.tuple_size,
+                                 prefetch=pf)
+            with timer.phase("train"):
+                avg_loss = trainer.train_epoch(
+                    loader, print_freq=cfg.print_freq,
+                    log_prefix=f"Epoch [{epoch}-{subid}]")
+            if verbose:
+                print(f"Epoch [{epoch}-{subid}] avg loss {avg_loss:.4f}")
+
+        if verbose:
+            print(timer.summary())
+        if (epoch + 1) % cfg.eval_step == 0 or epoch == cfg.epochs - 1:
+            with timer.phase("eval"):
+                recalls = evaluator.evaluate_sources(
+                    sources["q_val"], sources["db_val"], dataset.val_pos,
+                    batch_size=bs, prefetch=pf, print_results=verbose)
+            history.append((epoch, recalls))
+            is_best = recalls[1] > best_recall5
+            best_recall5 = max(recalls[1], best_recall5)
+            save_checkpoint(
+                osp.join(cfg.logs_dir, f"checkpoint{epoch}.npz"),
+                {"params": convert.params_to_jax(model.state_dict()),
+                 "torch_sgd": {"momentum": convert.params_to_jax(
+                     trainer.momentum_state())},
+                 "neg_cache": sampler.neg_cache},
+                {"epoch": epoch, "best_recall5": float(best_recall5)},
+                is_best=is_best,
+            )
+            if verbose:
+                print(
+                    f" * epoch {epoch} recall@1/5/10: "
+                    f"{recalls[0]:.1%}/{recalls[1]:.1%}/{recalls[2]:.1%} "
+                    f"best@5 {best_recall5:.1%}{' *' if is_best else ''}")
+
+    # final: PCA on the best model, test-split eval
+    best_path = osp.join(cfg.logs_dir, "model_best.npz")
+    if osp.isfile(best_path):
+        _load_params(model, read_checkpoint(best_path)[0]["params"])
+    recalls = finalize_with_pca(cfg, dataset, sources, model, verbose=verbose)
+    return model, recalls, history
+
+
+def _train_pca(feats, pca_dim, whiten, params_path, seed):
+    """PCA fit on at most 10k descriptors (a seeded subsample), with the
+    component count clamped to the data."""
+    if len(feats) > 10000:
+        sel = np.random.RandomState(seed).choice(len(feats), 10000,
+                                                 replace=False)
+        feats = feats[torch.as_tensor(sel, device=feats.device)]
+    pca = pca_ops.PCA(min(pca_dim, feats.shape[0], feats.shape[1]),
+                      whiten=whiten, params_path=params_path)
+    pca.train(feats)
+    return pca
+
+
+def finalize_with_pca(cfg, dataset, sources, model, verbose=True):
+    """Fit PCA-whitening on the training split's descriptors and evaluate
+    the test split with the reduction (pool or VLAD feature per
+    ``cfg.use_vlad``). The fit is saved as pca_params_model_best.h5 in
+    ``cfg.logs_dir`` (``utils.array_file``)."""
+    feature = "vlad" if cfg.use_vlad else "pool"
+    emodel = eval_view(model)
+    feats = torch.cat([_extract(emodel, sources[name], cfg, feature)
+                       for name in ("q_train", "db_train")])
+    pca = _train_pca(
+        feats, cfg.pca_dim, cfg.whiten,
+        array_file(osp.join(cfg.logs_dir, "pca_params_model_best.h5")),
+        cfg.seed)
+    del feats
+    if verbose:
+        print("Testing with PCA reduction:")
+    return Evaluator(emodel, feature=feature).evaluate_sources(
+        sources["q_test"], sources["db_test"], dataset.test_pos, pca=pca,
+        batch_size=cfg.data.test_batch_size, prefetch=cfg.data.workers,
+        print_results=verbose,
+    )

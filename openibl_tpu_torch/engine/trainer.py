@@ -1,0 +1,157 @@
+"""Baseline trainer: triplet / SARE over mined tuples (port of
+openibl_tpu/engine/trainer.py, single device).
+
+  * one train step: a tuple batch (T, 2+neg, H, W, 3) through the model's
+    eager head under autograd (never the fused kernel K1: its gradient is
+    the plain head's anyway), the loss, backward, one optimizer step;
+  * ``torch.optim.SGD(lr, momentum, weight_decay)`` over the parameters
+    that train: weight decay is added to the gradient before the momentum
+    buffer, and frozen layers (``requires_grad_(False)``, VGG16.freeze)
+    never reach the optimizer, exactly what the JAX package's optax chain
+    was written to match;
+  * ``torch.optim.lr_scheduler.StepLR``, advanced once per epoch to the
+    JAX package's ``steplr`` value before the epoch's subsets run;
+  * the step runs in f32 (``utils.f32_precision``, TF32 off) for an f32
+    backbone, forward and backward, as the JAX package's f32 step;
+  * ``remat`` recomputes the backbone's activations in the backward
+    (``torch.utils.checkpoint``), the JAX package's ``jax.checkpoint``.
+
+On-device ColorJitter (``device_jitter``) and the data-parallel step
+(``mesh``) come with ROADMAP Queue 1 items 11 and 12.
+"""
+
+import time
+import warnings
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from openibl_tpu_torch.ops.losses import tuple_loss
+from openibl_tpu_torch.utils import AverageMeter, f32_precision
+
+
+def make_optimizer(model, lr, momentum=0.9, weight_decay=1e-3):
+    """torch.optim.SGD over ``model``'s parameters that train."""
+    return torch.optim.SGD(
+        [p for p in model.parameters() if p.requires_grad], lr=lr,
+        momentum=momentum, weight_decay=weight_decay)
+
+
+def steplr(base_lr, epoch, step_size, gamma=0.5):
+    """torch StepLR schedule value at ``epoch``."""
+    return base_lr * (gamma ** (epoch // step_size))
+
+
+class Trainer:
+    """Owns the optimizer and scheduler of ``model`` (an EmbedNet whose
+    parameters it updates in place)."""
+
+    def __init__(self, model, loss_type="triplet", margin=np.sqrt(0.1),
+                 lr=1e-3, momentum=0.9, weight_decay=1e-3, mesh=None,
+                 use_pool_feature=False, remat=False, device_jitter=False):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the data-parallel train step is not ported to "
+                "openibl_tpu_torch yet: ROADMAP Queue 1 item 12")
+        if device_jitter:
+            raise NotImplementedError(
+                "on-device ColorJitter is not ported to openibl_tpu_torch "
+                "yet: ROADMAP Queue 1 item 11")
+        if model.net_vlad.fused:
+            raise ValueError("train through the eager NetVLAD head: the "
+                             "fused kernel serves no-grad extraction "
+                             "(pipeline.eval_view)")
+        self.model = model
+        self.loss_type = loss_type
+        self.margin = float(margin)
+        self.use_pool_feature = use_pool_feature  # trains on raw pool_x
+        self.remat = remat
+        self.base_lr = lr
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.optimizer = None
+        self.scheduler = None
+
+    def init(self):
+        """Build the optimizer (the schedule starts at the next
+        set_epoch_lr); returns it."""
+        self.optimizer = make_optimizer(self.model, self.base_lr,
+                                        self.momentum, self.weight_decay)
+        self.scheduler = None
+        return self.optimizer
+
+    def _descriptors(self, flat):
+        if self.remat:
+            pool_x, fmap = checkpoint(self.model.base, flat,
+                                      use_reentrant=False)
+            vlad_x = self.model.net_vlad.descriptor(fmap)
+        else:
+            pool_x, vlad_x = self.model(flat)
+        # the pool path trains on the raw pool output, as the reference
+        return pool_x if self.use_pool_feature else vlad_x
+
+    def step(self, images):
+        """One update on a tuple batch (T, 2+neg, H, W, 3), a numpy array
+        or tensor; returns the loss (a detached 0-d tensor)."""
+        if self.optimizer is None:
+            raise RuntimeError("call init() before step()")
+        dev = next(self.model.parameters()).device
+        images = torch.as_tensor(images).to(dev)
+        t, g = images.shape[:2]
+        flat = images.reshape((t * g,) + tuple(images.shape[2:]))
+        self.optimizer.zero_grad(set_to_none=True)
+        with f32_precision():
+            desc = self._descriptors(flat).reshape(t, g, -1)
+            loss = tuple_loss(desc, self.loss_type, self.margin)
+            loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def set_epoch_lr(self, epoch, step_size, gamma=0.5):
+        """Advance StepLR to ``epoch`` (once per epoch, before its
+        subsets); returns the learning rate set."""
+        if self.optimizer is None:
+            raise RuntimeError("call init() before set_epoch_lr()")
+        if self.scheduler is None:
+            self.scheduler = torch.optim.lr_scheduler.StepLR(
+                self.optimizer, step_size, gamma)
+        if epoch < self.scheduler.last_epoch:
+            raise ValueError(f"the schedule is at epoch "
+                             f"{self.scheduler.last_epoch}, past {epoch}")
+        with warnings.catch_warnings():
+            # a resume advances the schedule before any optimizer step
+            warnings.filterwarnings("ignore", category=UserWarning,
+                                    message="Detected call of")
+            while self.scheduler.last_epoch < epoch:
+                self.scheduler.step()
+        return self.scheduler.get_last_lr()[0]
+
+    def momentum_state(self):
+        """{parameter name: SGD momentum buffer} of the parameters that
+        have one (a checkpoint's optimizer state)."""
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        return {names[id(p)]: s["momentum_buffer"]
+                for p, s in self.optimizer.state.items()
+                if s.get("momentum_buffer") is not None}
+
+    def load_momentum_state(self, buffers):
+        """Inverse of momentum_state: restore the buffers by name."""
+        for name, p in self.model.named_parameters():
+            if p.requires_grad and name in buffers:
+                self.optimizer.state[p]["momentum_buffer"] = torch.as_tensor(
+                    buffers[name]).to(p).clone()
+
+    def train_epoch(self, tuple_loader, print_freq=10, log_prefix=""):
+        """One pass over the mined tuples; returns the mean loss."""
+        losses, batch_time = AverageMeter(), AverageMeter()
+        end = time.time()
+        for i, images in enumerate(tuple_loader):
+            losses.update(float(self.step(images)))
+            batch_time.update(time.time() - end)
+            end = time.time()
+            if (i + 1) % print_freq == 0:
+                print(f"{log_prefix}[{i + 1}/{len(tuple_loader)}] "
+                      f"Time {batch_time.val:.3f} ({batch_time.avg:.3f}) "
+                      f"Loss {losses.val:.3f} ({losses.avg:.3f})")
+        return losses.avg

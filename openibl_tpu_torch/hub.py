@@ -16,7 +16,7 @@ import torch
 from openibl_tpu_torch import models
 from openibl_tpu_torch.data.transforms import TestTransform
 from openibl_tpu_torch.models import convert
-from openibl_tpu_torch.utils import resolve_device
+from openibl_tpu_torch.utils import array_file, resolve_device
 
 
 def _require_loaded(model, state, path):
@@ -44,8 +44,8 @@ def _load_npz(model, path, pca_params):
     _require_loaded(model, state, path)
     if is_pipeline and pca_params is None and "pca" not in tree:
         stem = osp.basename(str(path)).split(".")[0] or "model"
-        cand = osp.join(osp.dirname(str(path)) or ".",
-                        f"pca_params_{stem}.h5")
+        cand = array_file(osp.join(osp.dirname(str(path)) or ".",
+                                   f"pca_params_{stem}.h5"))
         if not osp.isfile(cand):
             # without this the PCA layer silently keeps its RANDOM init and
             # every descriptor is whitened by noise

@@ -13,6 +13,10 @@ Two sources:
 
 Port state-dict keys: ``base.<conv>.weight/bias``, ``net_vlad.assign_w``,
 ``net_vlad.centroids``, ``pca_layer.w``, ``pca_layer.b``.
+
+``params_to_jax`` is the inverse of ``params_from_jax``: the checkpoint
+writer stores the port's parameters in the JAX layouts, and a round trip
+JAX → port → JAX gives the same bits (transposes and copies only).
 """
 
 import numpy as np
@@ -85,15 +89,47 @@ def params_from_jax(tree):
     return state
 
 
+def _array(t):
+    """A C-ordered numpy copy, never a view of a live tensor."""
+    return np.array(t.detach().cpu() if isinstance(t, torch.Tensor) else t,
+                    order="C")
+
+
+def params_to_jax(state):
+    """Port state dict (or a module's) → the JAX package's parameter tree
+    of numpy arrays: conv weight OIHW → w HWIO, NetVLAD and PCA as they
+    are. Entries the JAX trees do not have are left out."""
+    tree = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        if parts[0] == "base" and len(parts) == 3:
+            leaf = tree.setdefault("base", {}).setdefault(parts[1], {})
+            if parts[2] == "weight":
+                leaf["w"] = np.ascontiguousarray(
+                    _array(value).transpose(2, 3, 1, 0))
+            else:
+                leaf["b"] = _array(value)
+        elif parts[0] == "net_vlad":
+            tree.setdefault("vlad", {})[parts[1]] = _array(value)
+        elif parts[0] == "pca_layer":
+            tree.setdefault("pca", {})[parts[1]] = _array(value)
+    return tree
+
+
 def _strip(key):
     return key[len("module."):] if key.startswith("module.") else key
 
 
-def state_from_torch(state_dict):
-    """Reference torch state dict (EmbedNetPCA layout, or EmbedNet without
-    ``pca_layer.*``) → port state dict."""
-    sd = {_strip(k): v.detach().float() for k, v in state_dict.items()
-          if isinstance(v, torch.Tensor)}
+def _torch_sd(state_dict):
+    return {_strip(k): v.detach().float() for k, v in state_dict.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def vgg16_state_from_torch(state_dict):
+    """The 13 VGG16 convolutions of a torch state dict (a reference model,
+    or the torchvision-indexed ``features`` of the MatConvNet backbone
+    ``vd16_offtheshelf_conv5_3_max.pth``) → ``base.<conv>.weight/bias``."""
+    sd = _torch_sd(state_dict)
     state = {}
     for prefix in ("base_model.base.", "base.", ""):
         names = {idx: name for idx, name in TORCH_VGG16_CONV_INDEX.items()
@@ -107,6 +143,14 @@ def state_from_torch(state_dict):
         raise ValueError(
             "could not locate all 13 VGG16 conv layers in state dict "
             f"(keys sample: {list(sd)[:5]})")
+    return state
+
+
+def state_from_torch(state_dict):
+    """Reference torch state dict (EmbedNetPCA layout, or EmbedNet without
+    ``pca_layer.*``) → port state dict."""
+    sd = _torch_sd(state_dict)
+    state = vgg16_state_from_torch(state_dict)
     w = sd["net_vlad.conv.weight"]  # (K, C, 1, 1)
     state["net_vlad.assign_w"] = w[:, :, 0, 0].t().contiguous()  # (C, K)
     state["net_vlad.centroids"] = sd["net_vlad.centroids"]

@@ -11,6 +11,11 @@ head through that kernel.
 
 Parameters keep the JAX layouts: assign_w (C, K), centroids (K, C), the PCA
 projection w (D_in, D_out) and b (D_out,).
+
+``EmbedNet`` and ``EmbedNetPCA`` run their forward inside
+``utils.f32_precision``: an f32 model computes its convolutions and
+products in f32 (no TF32) whatever the caller's global flags, as the JAX
+package's f32 path does; bf16 backbones are unaffected.
 """
 
 import numpy as np
@@ -18,7 +23,7 @@ import torch
 from torch import nn
 
 from openibl_tpu_torch.models.vgg import VGG16
-from openibl_tpu_torch.utils import l2_normalize
+from openibl_tpu_torch.utils import f32_precision, l2_normalize
 
 
 def init_netvlad_params(generator=None, num_clusters=64, dim=512,
@@ -172,8 +177,9 @@ class EmbedNet(nn.Module):
         return self.net_vlad.num_clusters * self.net_vlad.dim
 
     def forward(self, images):
-        pool_x, fmap = self.base(images)
-        return pool_x, self.net_vlad.descriptor(fmap)
+        with f32_precision():
+            pool_x, fmap = self.base(images)
+            return pool_x, self.net_vlad.descriptor(fmap)
 
 
 class EmbedNetPCA(nn.Module):
@@ -194,5 +200,6 @@ class EmbedNetPCA(nn.Module):
         return self.pca_dim
 
     def forward(self, images):
-        _, fmap = self.base(images)
-        return self.pca_layer(self.net_vlad.descriptor(fmap))
+        with f32_precision():
+            _, fmap = self.base(images)
+            return self.pca_layer(self.net_vlad.descriptor(fmap))

@@ -34,7 +34,25 @@ VGG16_LAYERS = (
     ("conv5_3", 512, 512, False, False),
 )
 
+# the first trained layer per ``train_layers`` value (the reference's
+# requires_grad freeze of everything before it)
+TRAIN_LAYERS_START = {
+    "conv5": "conv5_1",
+    "conv4": "conv4_1",
+    "conv3": "conv3_1",
+    "conv2": "conv2_1",
+    "full": "conv1_1",
+}
+
 FEATURE_DIM = 512
+
+
+def trainable_mask(train_layers="conv5"):
+    """{conv name: True if it trains}, the JAX package's trainable_mask
+    (openibl_tpu/models/vgg.py:178) per layer."""
+    names = [layer[0] for layer in VGG16_LAYERS]
+    start = names.index(TRAIN_LAYERS_START[train_layers])
+    return {name: i >= start for i, name in enumerate(names)}
 
 
 class VGG16(nn.Module):
@@ -68,6 +86,14 @@ class VGG16(nn.Module):
             conv.weight.copy_(torch.randn(conv.weight.shape,
                                           generator=generator) * std)
             conv.bias.zero_()
+        return self
+
+    def freeze(self, train_layers="conv5"):
+        """Freeze the layers before ``train_layers``'s first
+        (``requires_grad_(False)``): they get no gradient and must not
+        reach the optimizer."""
+        for name, trains in trainable_mask(train_layers).items():
+            getattr(self, name).requires_grad_(trains)
         return self
 
     def forward(self, images):

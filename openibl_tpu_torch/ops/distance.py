@@ -1,19 +1,25 @@
-"""Exact k-nearest-neighbour retrieval (port of openibl_tpu/ops/distance.py,
-retrieval half).
+"""Exact k-nearest-neighbour retrieval and hard-tuple mining (port of
+openibl_tpu/ops/distance.py, retrieval and mining halves).
 
 ``topk_nearest`` either materializes the (Q, N) distance matrix and runs one
 top-k (small problems) or streams the gallery in tiles and merges a running
 top-k (O(Q*k) state). f16 and int8 galleries (with per-row scales) stay in
 their storage dtype on the streaming path and are widened one tile at a
 time. The JAX package leaves this step to XLA; here it is ``torch.matmul``
-and ``torch.topk``. ``return_rowmax`` comes with the k-reciprocal rerank
-(ROADMAP Queue 1 item 10); the mesh-sharded search with multi-GPU (item 12).
+and ``torch.topk``. ``mine_hard_tuples`` picks each anchor's easiest
+positive and hardest negatives from one f32 (S, G) distance matrix, with
+TF32 off as the JAX package's ``Precision.HIGHEST`` asks.
+``return_rowmax``, ``rank_positives`` and ``mine_hard_tuples_ranked`` come
+with the k-reciprocal rerank and SFRS (ROADMAP Queue 1 item 10); the
+mesh-sharded search with multi-GPU (item 12).
 """
 
 import os
 
 import numpy as np
 import torch
+
+from openibl_tpu_torch.utils import f32_precision
 
 
 def pairwise_sqdist(x, y):
@@ -138,3 +144,48 @@ def topk_nearest(query, gallery, k, chunk=None, full_path=None,
             ti = torch.gather(ti, 1, pos)
         best_d, best_i = td, ti
     return best_d, best_i
+
+
+def _pos_distances(d2, pos_idx):
+    """(S, P) distances to each anchor's UTM positives, inf where padded."""
+    pos_d = torch.gather(d2, 1, torch.clamp(pos_idx, min=0))
+    return torch.where(pos_idx >= 0, pos_d, torch.full_like(pos_d, np.inf))
+
+
+def _mine_from_d2(d2, pos_idx, cand_idx, neg_num):
+    pos_d = _pos_distances(d2, pos_idx)
+    pos_choice = torch.gather(
+        pos_idx, 1, torch.argmin(pos_d, dim=1, keepdim=True))[:, 0]
+    cand_d = torch.gather(d2, 1, torch.clamp(cand_idx, min=0))
+    cand_d = torch.where(cand_idx >= 0, cand_d,
+                         torch.full_like(cand_d, np.inf))
+    # a stable sort, not topk: equal distances keep candidate order, as
+    # lax.top_k keeps them (the lower position first)
+    top = torch.sort(cand_d, dim=1, stable=True).indices[:, :neg_num]
+    return pos_choice, torch.gather(cand_idx, 1, top)
+
+
+def mine_hard_tuples(q_feats, g_feats, pos_idx, cand_idx, neg_num=10):
+    """Hard-tuple mining on the features' device.
+
+    The positive is the *easiest* (nearest by current descriptors) among
+    each anchor's UTM positives; the negatives are the ``neg_num``
+    *hardest* (nearest) of its candidates (a host-sampled random pool ∪
+    the previous refresh's negatives, UTM-near items already excluded),
+    nearest first; a -1 means too few valid candidates.
+
+    Args:
+      q_feats: (S, D) anchor descriptors; g_feats: (G, D) gallery.
+      pos_idx: (S, P) gallery indices of UTM positives, -1 padded.
+      cand_idx: (S, C) candidate negative indices, -1 padded.
+    Returns:
+      pos_choice (S,), neg_choice (S, neg_num) int64 tensors on the
+      features' device.
+    """
+    g = torch.as_tensor(g_feats)
+    dev = g.device
+    pos_idx = torch.as_tensor(pos_idx, device=dev).long()
+    cand_idx = torch.as_tensor(cand_idx, device=dev).long()
+    with f32_precision():
+        d2 = pairwise_sqdist(torch.as_tensor(q_feats).to(dev), g)
+    return _mine_from_d2(d2, pos_idx, cand_idx, neg_num)

@@ -1,9 +1,10 @@
 """Descriptor extraction over a batch loader, on one device (port of
 openibl_tpu/parallel/extract.py:extract_features).
 
-The mesh-sharded extraction comes with multi-GPU (ROADMAP Queue 1 item 12),
-the masked variable-shape loader with Tokyo 24/7 (item 8), and the PCA
-object of the training pipeline with training (item 9).
+``pca`` (an ``ops.pca.PCA``) projects and re-normalizes each batch on the
+device, as the JAX package's extraction does. The mesh-sharded extraction
+comes with multi-GPU (ROADMAP Queue 1 item 12), the masked variable-shape
+loader with Tokyo 24/7 (item 8).
 """
 
 import numpy as np
@@ -12,10 +13,11 @@ import torch
 from openibl_tpu_torch.utils import l2_normalize
 
 
-def make_extract_fn(model, feature="vlad", l2norm=True):
-    """images (B, H, W, 3) tensor → L2-normalized descriptors. ``model``
-    returns descriptors or a (pool, desc) tuple (the EmbedNet convention);
-    ``feature`` picks "vlad" (desc) or "pool"."""
+def make_extract_fn(model, feature="vlad", l2norm=True, pca=None):
+    """images (B, H, W, 3) tensor → L2-normalized descriptors, then
+    PCA-projected when ``pca`` is given. ``model`` returns descriptors or a
+    (pool, desc) tuple (the EmbedNet convention); ``feature`` picks "vlad"
+    (desc) or "pool"."""
     if feature not in ("vlad", "pool"):
         raise ValueError(f"feature must be 'vlad' or 'pool', got {feature!r}")
 
@@ -23,13 +25,16 @@ def make_extract_fn(model, feature="vlad", l2norm=True):
         out = model(images)
         if isinstance(out, tuple):
             out = out[0] if feature == "pool" else out[1]
-        return l2_normalize(out, dim=-1) if l2norm else out
+        if l2norm:
+            out = l2_normalize(out, dim=-1)
+        return out if pca is None else pca.infer(out)
 
     return fwd
 
 
-def extract_features(model, loader, mesh=None, feature="vlad", verbose=False,
-                     sort=True, masked_apply_fn=None, device_output=False):
+def extract_features(model, loader, mesh=None, pca=None, feature="vlad",
+                     verbose=False, sort=True, masked_apply_fn=None,
+                     device_output=False):
     """Extract descriptors for every item the loader yields.
 
     ``model`` is a torch module (e.g. hub.vgg16_netvlad) and runs on its
@@ -50,7 +55,7 @@ def extract_features(model, loader, mesh=None, feature="vlad", verbose=False,
         raise NotImplementedError(
             "masked (PaddedBatchLoader) extraction is not ported to "
             "openibl_tpu_torch yet: ROADMAP Queue 1 item 8")
-    fwd = make_extract_fn(model, feature=feature)
+    fwd = make_extract_fn(model, feature=feature, pca=pca)
     dev = next(model.parameters()).device
     if device_output:
         if not hasattr(loader, "indices"):

@@ -27,6 +27,7 @@ from openibl_tpu_torch.hub import vgg16_netvlad
 from openibl_tpu_torch.ops.distance import quantize_index_int8, topk_nearest
 from openibl_tpu_torch.ops.ivf import ivf_search
 from openibl_tpu_torch.ops.pq import ivfpq_search, pq_search, pq_search_rerank
+from openibl_tpu_torch.utils import f32_precision
 
 _BATCH_BUCKETS = (1, 4, 16)
 
@@ -247,8 +248,9 @@ class RetrievalService:
                             gallery_sqnorm=self._sqnorm)
 
     def _run(self, batch, k):
-        """uint8 (B, H, W, 3) numpy batch → (dists, indices) numpy."""
-        with torch.inference_mode():
+        """uint8 (B, H, W, 3) numpy batch → (dists, indices) numpy; the
+        model and the search run their f32 work in f32 (no TF32)."""
+        with torch.inference_mode(), f32_precision():
             desc = self._model(torch.from_numpy(batch).to(self.device))
             d, i = self._search(desc, k)
             return d.cpu().numpy(), i.cpu().numpy()

@@ -27,6 +27,17 @@ descriptors against the plain head's (up to ties), the losses, the frozen
 layers (bit-equal) and one train step on the card against the same step on
 the CPU, and prints the train step's tuples/s and the mining extraction's
 img/s (steady over five passes, with the decode and the device apart).
+Then checkpoint evaluation at full width, Tokyo 24/7: a mini Tokyo root
+(64 gallery PNGs at 480x640, 16 queries re-rendered at mixed sizes and
+orientations, 16 TokyoTM images), the serving model's EmbedNet saved as a
+JAX-layout .npz checkpoint, and engine/pipeline.run_eval on the default
+device with NMS and a PCA fitted on demand: bucket-padded queries through
+the masked forward (eager head), the gallery through K1. It checks the
+masked descriptors against per-shape batch-1 forwards on the card and one
+query per bucket against the CPU, K1 on a gallery batch, run_eval's recalls
+against the per-shape descriptors' and which pass launched K1, and prints
+the masked img/s per bucket (with its fill), the per-shape loop's img/s,
+the masking's cost, the gallery's img/s and run_eval's phases.
 Beside the served path it measures what cuDNN's TF32 (on as
 PyTorch ships it) does to an f32 descriptor at 480x640 and to the top-10
 over the 100k gallery, through the model's parts and through the entry
@@ -38,8 +49,8 @@ netvlad_init_from_clusters, as a trainer initializes it), and the PCA
 layer's bias centres the VLADs on their mean over the bootstrap images, as
 a PCA fit does, because the raw random init maps every image to nearly the
 same descriptor. Each served
-path, and the training run, runs with the kernels' launch counts set to 0
-just before it and read just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
+path, the training run and the Tokyo eval run with the kernels' launch
+counts set to 0 just before and read just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
 the same bits on a second run, and against its split-precision arithmetic
 run in plain PyTorch; K2 also at 3 and 17 queries. Prints timing
 lines (CUDA events, or the host clock for service.query) with the card's
@@ -68,6 +79,7 @@ import argparse
 import importlib.util
 import io
 import json
+import os
 import os.path as osp
 import statistics
 import subprocess
@@ -102,6 +114,17 @@ TF32_OPS_PER_MS, BF16_OPS_PER_MS = 495e9, 989e9
 # step, 3 steps, on the default synthetic world (24 places x 4 images)
 TRAIN_TS, TRAIN_NEG, TRAIN_ITERS = 4, 10, 3
 MINE_REPS = 5  # timed passes of the mining extraction, after a warm-up
+# the Tokyo 24/7 phase: 32 panorama directories of 2 gallery images at
+# H x W, 16 queries re-rendered from them at the sizes (w, h) below (both
+# orientations, odd extents; TestTransform(tokyo=True) then sets the
+# shorter side to max(H, W)), TokyoTM train 4 places x 3 timestamps and
+# val 2 x 2 at H x W, the PCA fitted on the 12 train images (8 components)
+TOKYO_DIRS, TOKYO_PCA_DIM = 32, 8
+TOKYO_QUERY_SIZES = (
+    (1000, 750), (750, 1000), (1280, 720), (997, 743), (720, 1280),
+    (743, 997), (1024, 768), (768, 1024), (1200, 900), (900, 1200),
+    (1100, 825), (1333, 1000), (1023, 767), (600, 800), (1280, 960),
+    (1281, 721))
 CARD = ""  # the card's name and power limit, set by run()
 
 
@@ -1120,6 +1143,298 @@ def train_phase(dev, card, seed):
     return launches
 
 
+def _mat_cell(paths):
+    out = np.empty((len(paths), 1), dtype=object)
+    for i, p in enumerate(paths):
+        out[i, 0] = np.array([p])
+    return out
+
+
+def write_db_struct(path, db, db_utm, q, q_utm, time_stamps=False):
+    """A NetVLAD-release dbStruct .mat in the field order the parsers read:
+    Tokyo 24/7's, or TokyoTM's with ``time_stamps``."""
+    from scipy.io import savemat
+
+    fields = [("whichSet", "test"), ("dbImage", _mat_cell(db)),
+              ("utmDb", np.asarray(db_utm, np.float64).T)]
+    if time_stamps:
+        fields.append(("dbTimeStamp", np.zeros((1, len(db)))))
+    fields += [("qImage", _mat_cell(q)),
+               ("utmQ", np.asarray(q_utm, np.float64).T)]
+    if time_stamps:
+        fields.append(("qTimeStamp", np.zeros((1, len(q)))))
+    fields += [("numDb", float(len(db))), ("numQ", float(len(q)))]
+    struct = np.array([tuple(v for _, v in fields)],
+                      dtype=[(k, object) for k, _ in fields])
+    savemat(path, {"dbStruct": struct})
+
+
+def tokyo_world(raw, rng):
+    """A mini Tokyo root under ``raw``: TokyoTM train (4 places x 3
+    timestamps) and val (2 x 2) at H x W; Tokyo 24/7 with TOKYO_DIRS
+    panorama directories of 2 PNGs at H x W (two crops of one scene) and
+    one query per TOKYO_QUERY_SIZES entry, the scene of directory j at that
+    size (scaled by H / 480), 5 m from it. Returns the number of images."""
+    def put(rel, img):
+        path = osp.join(raw, rel)
+        os.makedirs(osp.dirname(path), exist_ok=True)
+        Image.fromarray(img).save(path, compress_level=1)
+
+    os.makedirs(raw)
+    n = 0
+    for split, places, stamps, x0 in (("train", 4, 3, 0.0),
+                                      ("val", 2, 2, 500.0)):
+        db, db_utm, q, q_utm = [], [], [], []
+        for i in range(places):
+            utm = [x0 + 100.0 * i, 0.0]
+            names = [f"images/{split}{i}/20{10 + t}/v.jpg"
+                     for t in range(stamps)]
+            db += names[:-1]
+            db_utm += [utm] * (stamps - 1)
+            q.append(names[-1])
+            q_utm.append(utm)
+        write_db_struct(osp.join(raw, f"tokyoTM_{split}.mat"), db, db_utm,
+                        q, q_utm, time_stamps=True)
+        for rel, img in zip(db + q, scenes(rng, len(db + q))):
+            put(f"tokyoTM/images/{rel}", img)
+            n += 1
+    db = [f"dir{i}/p{j}.jpg" for i in range(TOKYO_DIRS) for j in range(2)]
+    db_utm = [[1000.0 * i, 0.0] for i in range(TOKYO_DIRS) for _ in range(2)]
+    q = [f"q{j:02d}.jpg" for j in range(len(TOKYO_QUERY_SIZES))]
+    q_utm = [[1000.0 * j + 5.0, 0.0] for j in range(len(q))]
+    write_db_struct(osp.join(raw, "tokyo247.mat"), db, db_utm, q, q_utm)
+    views = scenes(rng, TOKYO_DIRS)
+    crop = H // 16
+    for i, rel in enumerate(db):
+        img = views[i // 2] if i % 2 == 0 else np.asarray(
+            Image.fromarray(views[i // 2][crop:]).resize((W, H),
+                                                         Image.BILINEAR))
+        put(f"tokyo247/images/{rel[:-3]}png", img)
+    scale = H / 480
+    for j, (rel, (w, h)) in enumerate(zip(q, TOKYO_QUERY_SIZES)):
+        size = (round(w * scale), round(h * scale))
+        put(f"tokyo247/query/{rel}", np.asarray(
+            Image.fromarray(views[j]).resize(size, Image.BILINEAR)))
+    return n + len(db) + len(q)
+
+
+def recalls_tie_equal(a, b, q, g, gt, pids, tie=1e-4, topk=(1, 5, 10)):
+    """Recall@topk ``a`` == ``b``, or they differ only where a query's
+    first true positive lies within ``tie`` (squared distance, after NMS
+    over 12 x max(topk)) of its k-th candidate, where two kNNs may order
+    near-equal rows either way. Returns (ok, near-ties found)."""
+    from openibl_tpu_torch.engine.evaluator import spatial_nms
+
+    ties = 0
+    d = torch.cdist(q.float(), g.float()).square().cpu().numpy()
+    for i, row in enumerate(d):
+        order = spatial_nms(list(np.argsort(row, kind="stable")), pids,
+                            12 * max(topk))
+        ranked = row[np.asarray(order)]
+        first = next((r for r, j in enumerate(order) if j in gt[i]), None)
+        for k in topk:
+            if first is not None and k <= len(ranked) and first != k - 1 \
+                    and abs(ranked[first] - ranked[k - 1]) < tie:
+                ties += 1
+    return bool(np.array_equal(a, b)) or ties > 0, ties
+
+
+def tokyo_phase(eval_tree, dev, card, seed):
+    """(h) Checkpoint evaluation at full width on the card, Tokyo 24/7: a
+    mini Tokyo root (tokyo_world), the serving model's EmbedNet (VGG16,
+    K=64, its bootstrapped NetVLAD) saved as a JAX-layout .npz checkpoint,
+    and engine/pipeline.run_eval with NMS and a PCA fitted on demand on the
+    TokyoTM train images, on the default device. K1's count is 0 just
+    before the run and read just after; each pass's launches are read
+    around Evaluator.extract. Then its checks: every query's masked
+    descriptor against its own per-shape batch-1 forward on the card, one
+    query per bucket against the CPU, K1 on a gallery batch, run_eval's
+    recalls against the per-shape descriptors'; and its rates. Returns
+    K1's launches in the run."""
+    import copy
+
+    from openibl_tpu_torch.config import DataConfig, EvalConfig
+    from openibl_tpu_torch.data.loader import (ImageSource,
+                                               PaddedBatchLoader)
+    from openibl_tpu_torch.data.transforms import TestTransform
+    from openibl_tpu_torch.engine import pipeline
+    from openibl_tpu_torch.engine.evaluator import (Evaluator,
+                                                    evaluate_descriptors)
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.ops.pca import PCA
+    from openibl_tpu_torch.parallel.extract import (extract_features,
+                                                    make_extract_fn)
+    from openibl_tpu_torch.utils import array_file, f32_precision
+    from openibl_tpu_torch.utils.checkpoint import save_checkpoint
+    from openibl_tpu_torch.utils.profiling import PhaseTimer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(seed + 4)
+        n_files = tokyo_world(osp.join(tmp, "data", "tokyo", "raw"), rng)
+        ckpt = save_checkpoint(osp.join(tmp, "logs", "model_best.npz"),
+                               {"params": eval_tree}, {"epoch": 0})
+        print(f"phase tokyo: mini Tokyo 24/7 root, {n_files} images, and a "
+              f"JAX-layout checkpoint in {time.perf_counter() - t0:.2f} s "
+              f"(host) [{card}]")
+        cfg = EvalConfig(
+            data=DataConfig(dataset="tokyo", data_dir=osp.join(tmp, "data"),
+                            height=H, width=W, test_batch_size=N_IMG),
+            checkpoint=ckpt, nms=True, reduction=True, pca_dataset="tokyo",
+            pca_dim=TOKYO_PCA_DIM)
+
+        passes = []
+        extract = Evaluator.extract
+
+        def counted_extract(self, loader, *a, **kw):
+            before = nk.netvlad_fused.launches
+            out = extract(self, loader, *a, **kw)
+            passes.append((type(loader).__name__,
+                           nk.netvlad_fused.launches - before, out))
+            return out
+
+        timer = PhaseTimer(dev)
+        Evaluator.extract = counted_extract
+        t0 = time.perf_counter()
+        try:
+            nk.netvlad_fused.launches = 0  # the Tokyo eval path starts
+            recalls = pipeline.run_eval(cfg, verbose=False, timer=timer)
+            launches = nk.netvlad_fused.launches  # the Tokyo eval path ends
+        finally:
+            Evaluator.extract = extract
+        wall = time.perf_counter() - t0
+        print(f"phase tokyo: run_eval (tokyo, NMS, PCA {TOKYO_PCA_DIM} "
+              f"fitted on demand) in {wall:.2f} s; Recall@1/5/10 "
+              f"{list(map(float, recalls))}; K1 launches {launches} "
+              f"[{card}]")
+        print("  " + timer.summary().replace("\n", "\n  ") + f" [{card}]")
+        check([(kind, n > 0) for kind, n, _ in passes]
+              == [("PaddedBatchLoader", False), ("BatchLoader", True)],
+              f"K1 launched {launches} times on the Tokyo eval path: "
+              f"{', '.join(f'{k} pass {n}' for k, n, _ in passes)} "
+              f"(the masked query pass takes the eager head), the rest on "
+              f"the PCA fit")
+
+        # the evaluated model, rebuilt from the checkpoint as run_eval does
+        dataset = pipeline.load_dataset(cfg)
+        model = pipeline.new_embednet(cfg)
+        pipeline._load_eval_weights(model, ckpt)
+        cpu_model = copy.deepcopy(model).eval()
+        model = model.to(dev, memory_format=torch.channels_last).eval()
+        emodel = pipeline.eval_view(model)
+        q_src = ImageSource(dataset.q_test, dataset.images_dir,
+                            TestTransform(H, W, tokyo=True,
+                                          device_normalize=True))
+        n_q = len(q_src)
+        fwd = make_extract_fn(emodel)
+        with torch.inference_mode():
+            loader = PaddedBatchLoader(q_src, batch_size=N_IMG)
+            masked = extract_features(emodel, loader,
+                                      masked_apply_fn=emodel.forward_masked,
+                                      device_output=True)
+            per_shape = [torch.tensor(q_src.load(i)[None]).to(dev)
+                         for i in range(n_q)]
+            ps = torch.cat([fwd(x) for x in per_shape])
+        torch.cuda.synchronize()
+        gap = float((masked - ps).abs().max())
+        torch.testing.assert_close(masked, ps, rtol=RTOL, atol=ATOL)
+        check(True, f"{n_q} Tokyo queries: masked bucket-padded descriptor "
+                    f"(32768-d) == own per-shape batch-1 forward (K1) on the "
+                    f"card, max |gap| {gap:.3g} ({gate_ratio(masked, ps):.4f}"
+                    f" of the rtol {RTOL} / atol {ATOL} gate)")
+        buckets = list(loader)
+        cpu_fwd = make_extract_fn(cpu_model)
+        for images, hws, idx, count in buckets:
+            i = int(idx[0])
+            with torch.no_grad():
+                ref = cpu_fwd(torch.tensor(q_src.load(i)[None]))
+            got = masked[i:i + 1].cpu()
+            torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+            check(True, f"query {i} ({hws[0][0]}x{hws[0][1]} in the "
+                        f"{images.shape[1]}x{images.shape[2]} bucket): card "
+                        f"masked == CPU plain path at its own shape, max "
+                        f"|gap| {float((got - ref).abs().max()):.3g} "
+                        f"({gate_ratio(got, ref):.4f} of the gate)")
+
+        # K1 on a gallery batch against the plain head
+        g_src = ImageSource(dataset.db_test, dataset.images_dir,
+                            TestTransform(H, W, device_normalize=True))
+        gb = torch.from_numpy(np.stack(
+            [g_src.load(i) for i in range(N_IMG)])).to(dev)
+        nv = model.net_vlad
+        with torch.inference_mode(), f32_precision():
+            fmap = model.base(gb)[1]
+            got = nk.netvlad_fused(fmap, nv.assign_w, nv.centroids,
+                                   postprocess=True)
+            ref = nk.netvlad_plain(fmap, nv.assign_w, nv.centroids,
+                                   postprocess=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        check(True, f"K1 == plain head on a Tokyo gallery batch "
+                    f"{tuple(fmap.shape)}, max_abs_err "
+                    f"{float((got - ref).abs().max()):.3g} "
+                    f"({gate_ratio(got, ref):.4f} of the gate)")
+
+        # run_eval's recalls against the per-shape descriptors' (through
+        # the PCA run_eval fitted and the gallery it extracted)
+        pca = PCA(TOKYO_PCA_DIM, params_path=array_file(osp.join(
+            tmp, "logs", "pca_params_model_best.h5")))
+        q_red, g_red = pca.infer(ps), passes[1][2]
+        pids = [it[1] for it in dataset.db_test]
+        want = evaluate_descriptors(q_red, g_red, dataset.test_pos, pids,
+                                    nms=True, print_results=False)
+        q_run = passes[0][2]
+        ok, ties = recalls_tie_equal(recalls, want, q_red, g_red,
+                                     dataset.test_pos, pids)
+        check(ok, f"run_eval Recall@1/5/10 {list(map(float, recalls))} == "
+                  f"per-shape descriptors' {list(map(float, want))} through "
+                  f"evaluate_descriptors, up to ties ({ties} near-ties at a "
+                  f"cut); reduced query descriptors {q_run.shape[1]}-d, "
+                  f"run_eval's vs per-shape max |gap| "
+                  f"{float((q_run - q_red).abs().max()):.3g}")
+
+        # rates: each bucket through the masked forward, the same batch
+        # unmasked (K1) and the backbone alone both ways (the re-zeroing's
+        # cost), the reference's per-shape batch-1 loop, the gallery (K1)
+        with torch.inference_mode():
+            for images, hws, idx, count in buckets:
+                x = torch.from_numpy(images).to(dev)
+                hw = torch.from_numpy(hws).to(dev)
+                fill = sum(int(h) * int(w) for h, w in hws[:count]) / (
+                    count * images.shape[1] * images.shape[2])
+                ms = cuda_ms(lambda: emodel.forward_masked(x, hw), reps=5,
+                             warmup=1)
+                plain = cuda_ms(lambda: emodel(x), reps=5, warmup=1)
+                with f32_precision():
+                    b_m = cuda_ms(lambda: model.base(x, hw), reps=5,
+                                  warmup=1)
+                    b_p = cuda_ms(lambda: model.base(x), reps=5, warmup=1)
+                print(f"timing tokyo masked query bucket "
+                      f"{images.shape[1]}x{images.shape[2]}, {count} "
+                      f"queries padded to batch {len(images)}, fill "
+                      f"{fill:.3f}: {len(images) / ms * 1e3:.2f} img/s "
+                      f"({ms:.2f} ms/batch, {count / ms * 1e3:.2f} queries/s)"
+                      f"; unmasked at the same shape (K1) "
+                      f"{len(images) / plain * 1e3:.2f} img/s ({plain:.2f} "
+                      f"ms); backbone masked {b_m:.2f} ms vs unmasked "
+                      f"{b_p:.2f} ms (+{(b_m / b_p - 1) * 100:.2f}%) "
+                      f"[{card}]")
+                del x
+            ms = cuda_ms(lambda: [fwd(x) for x in per_shape], reps=3,
+                         warmup=1)
+            print(f"timing tokyo per-shape batch-1 loop (the reference's "
+                  f"strategy), {n_q} queries at their own shapes through "
+                  f"K1: {n_q / ms * 1e3:.2f} img/s ({ms:.2f} ms) [{card}]")
+            ms = cuda_ms(lambda: fwd(gb), reps=5, warmup=1)
+            print(f"timing tokyo gallery {H}x{W} batch {N_IMG} through K1: "
+                  f"{N_IMG / ms * 1e3:.2f} img/s ({ms:.2f} ms/batch) "
+                  f"[{card}]")
+        del model, emodel, cpu_model, per_shape, masked, ps, gb, fmap
+        passes.clear()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1135,6 +1450,7 @@ def main():
 def run(dev, seed=0):
     from openibl_tpu_torch.engine.evaluator import evaluate_descriptors
     from openibl_tpu_torch.hub import vgg16_netvlad
+    from openibl_tpu_torch.models.convert import params_to_jax
     from openibl_tpu_torch.models.netvlad import netvlad_init_from_clusters
     from openibl_tpu_torch.ops import netvlad_kernel as nk
     from openibl_tpu_torch.ops.distance import topk_nearest
@@ -1184,6 +1500,10 @@ def run(dev, seed=0):
         shift = -(vlad.mean(dim=0) @ model.pca_layer.w)
     with torch.no_grad():
         model.pca_layer.b.copy_(shift)
+    # the EmbedNet half (VGG16 + NetVLAD) in the JAX layouts, the
+    # checkpoint the Tokyo phase evaluates
+    eval_tree = params_to_jax({k: v for k, v in model.state_dict().items()
+                               if not k.startswith("pca_layer.")})
 
     images = scenes(rng, PLANTED)
     imgs_dev = torch.from_numpy(images).to(dev)
@@ -1320,6 +1640,10 @@ def run(dev, seed=0):
     # -- phase 9b (f): the training slice ------------------------------------
     train_launches = train_phase(dev, card, seed)
 
+    # -- phase 9c (h): checkpoint evaluation, Tokyo 24/7 --------------------
+    tokyo_launches = tokyo_phase(eval_tree, dev, card, seed)
+    del eval_tree
+
     # -- phase 10: each kernel's host enqueue time, then the launch floor
     # and each device time (after every timed phase) ------------------------
     calls = [*k1_calls, *k2_calls, *probe_calls, *probe_k2_calls]
@@ -1330,9 +1654,10 @@ def run(dev, seed=0):
         {"name": "netvlad_fused", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/netvlad.cu",
          "replaces": "openibl_tpu/ops/netvlad_kernel.py:74",
-         "launches": k1_launches + train_launches,
+         "launches": k1_launches + train_launches + tokyo_launches,
          "launches_by_path": {"serve_exact": k1_launches,
-                              "train": train_launches}, **k1},
+                              "train": train_launches,
+                              "tokyo_eval": tokyo_launches}, **k1},
         {"name": "pq_adc", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/pq_adc.cu",
          "replaces": "openibl_tpu/ops/pq_kernel.py:84",

@@ -2,8 +2,9 @@
 
 Plain dataclasses with the JAX package's fields and defaults. Canonical
 values are the published recipe. ``TrainConfig`` drives
-``engine.pipeline.run_baseline_training``; ``SFRSConfig`` and ``EvalConfig``
-come with their workflows (ROADMAP Queue 1 items 10 and 8).
+``engine.pipeline.run_baseline_training``, ``EvalConfig``
+``engine.pipeline.run_eval``; ``SFRSConfig`` comes with its workflow
+(ROADMAP Queue 1 item 10).
 """
 
 import dataclasses
@@ -58,3 +59,24 @@ class TrainConfig:
     def margin(self):
         return self.margin_sq ** 0.5
 
+
+@dataclasses.dataclass
+class EvalConfig:
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    checkpoint: str = ""
+    pca_params: str = ""
+    reduction: bool = True  # apply PCA-whitening to pca_dim
+    whiten: bool = True  # whitening inside the reduction (reference --nowhiten)
+    use_vlad: bool = True  # False evaluates the global max-pool feature
+    pca_dim: int = 4096
+    rerank: bool = False  # k-reciprocal rerank: ROADMAP Queue 1 item 10
+    rr_topk: int = 25
+    lambda_value: float = 0.0
+    nms: bool = False  # Tokyo spatial NMS
+    num_clusters: int = 64
+    arch: str = "vgg16"
+    compute_dtype: str = "float32"  # or "bfloat16": match the training dtype
+    # dataset whose train split fits an on-demand PCA ('' = pitts for
+    # pitts/tokyo evals, as the reference's test.py; else the same dataset)
+    pca_dataset: str = ""
+    pca_scale: str = ""

@@ -1,6 +1,5 @@
 """Dataset registry with the JAX package's names (port of
-openibl_tpu/data/__init__.py). ``tokyo`` and ``demo`` come with the masked
-Tokyo 24/7 evaluation (ROADMAP Queue 1 item 8)."""
+openibl_tpu/data/__init__.py)."""
 
 
 def names():
@@ -12,10 +11,14 @@ def create(name, root, *args, **kwargs):
         from openibl_tpu_torch.data.pitts import Pittsburgh
 
         return Pittsburgh(root, *args, **kwargs)
-    if name in ("tokyo", "demo"):
-        raise NotImplementedError(
-            f"the {name!r} dataset is not ported to openibl_tpu_torch yet: "
-            f"ROADMAP Queue 1 item 8 (masked Tokyo 24/7 evaluation)")
+    if name == "tokyo":
+        from openibl_tpu_torch.data.tokyo import Tokyo
+
+        return Tokyo(root, *args, **kwargs)
+    if name == "demo":
+        from openibl_tpu_torch.data.demo import Demo
+
+        return Demo(root, *args, **kwargs)
     if name == "synthetic":
         from openibl_tpu_torch.data.synthetic import SyntheticDataset
 

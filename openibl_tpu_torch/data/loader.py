@@ -1,10 +1,9 @@
 """Host-side input pipeline: image source + thread-prefetched batch loaders.
 
-``ImageSource``, ``_prefetch``, ``BatchLoader`` and ``TupleLoader`` of
-openibl_tpu/data/loader.py, copied so that the port does not import the JAX
-package: PIL decode overlaps device work through one prefetch thread (PIL
-releases the GIL while it decodes and resizes). ``PaddedBatchLoader`` comes
-with the masked Tokyo path (ROADMAP Queue 1 item 8).
+``ImageSource``, ``_prefetch``, ``BatchLoader``, ``TupleLoader`` and
+``PaddedBatchLoader`` of openibl_tpu/data/loader.py, copied so that the port
+does not import the JAX package: PIL decode overlaps device work through one
+prefetch thread (PIL releases the GIL while it decodes and resizes).
 """
 
 import os.path as osp
@@ -35,6 +34,15 @@ class ImageSource:
         if self.transform is not None:
             return self.transform(img)
         return np.asarray(img, np.float32)
+
+    def shape_of(self, index):
+        """Transformed shape from the image header only (no pixel decode);
+        None when the transform cannot predict it."""
+        tf = self.transform
+        if tf is None or not hasattr(tf, "output_shape"):
+            return None
+        with Image.open(self.path_of(index)) as im:
+            return tf.output_shape(im.size)
 
 
 def _prefetch(gen, depth=2):
@@ -145,6 +153,105 @@ class TupleLoader:
                 np.stack([self.source.load(int(i)) for i in tup])
                 for tup in batch
             ])
+
+    def __iter__(self):
+        return _prefetch(self._gen(), self.prefetch_depth)
+
+
+class PaddedBatchLoader:
+    """Batches variable-shape items by zero-padding to a per-bucket shape.
+
+    Items are bucketed by orientation (portrait / landscape) and each bucket
+    is padded to its largest (H, W); with the masked forward
+    (``EmbedNet.forward_masked``) each bucket runs as one fixed-shape batch
+    and every image gets its per-shape result (the reference runs queries
+    batch-1 at their own shapes instead).
+
+    Yields (images (B, Hb, Wb, 3), valid_hw (B, 2) int32, indices, count).
+    The last batch of a bucket repeats its last index up to B.
+    """
+
+    def __init__(self, source: ImageSource, indices=None, batch_size=32,
+                 prefetch=2):
+        self.source = source
+        self.indices = (
+            np.arange(len(source)) if indices is None else np.asarray(indices)
+        )
+        self.batch_size = batch_size
+        self.prefetch_depth = prefetch
+        self._buckets = None
+        self._cache = {}
+        self._cache_bytes = 0
+        # decode-once cache cap: without a header-only shape_of, bucketing
+        # decodes the whole split up front, and an unbounded cache would
+        # hold every pixel of the split in host memory. Past the cap _shape
+        # keeps only the shape and _gen decodes again.
+        self._cache_cap_bytes = 256 * 1024 * 1024
+
+    def _shape(self, i):
+        shape = None
+        if hasattr(self.source, "shape_of"):
+            shape = self.source.shape_of(int(i))
+        if shape is None:
+            # no header-only probe: keep the decoded pixels for _gen (up to
+            # the byte cap) so bucketing doesn't double the decode cost
+            img = self.source.load(int(i))
+            if self._cache_bytes + img.nbytes <= self._cache_cap_bytes:
+                self._cache[int(i)] = img
+                self._cache_bytes += img.nbytes
+            shape = img.shape
+        return tuple(shape[:2])
+
+    def _ensure_buckets(self):
+        if self._buckets is not None:
+            return
+        # orientation -> {"idx": [...], "hw": [...], "pad": [h, w]}
+        buckets = {}
+        for i in self.indices:
+            h, w = self._shape(i)
+            b = buckets.setdefault(h >= w,
+                                   {"idx": [], "hw": [], "pad": [0, 0]})
+            b["idx"].append(int(i))
+            b["hw"].append((h, w))
+            b["pad"][0] = max(b["pad"][0], h)
+            b["pad"][1] = max(b["pad"][1], w)
+        self._buckets = list(buckets.values())
+
+    def __len__(self):
+        self._ensure_buckets()
+        return sum(-(-len(b["idx"]) // self.batch_size)
+                   for b in self._buckets)
+
+    def _gen(self):
+        self._ensure_buckets()
+        bs = self.batch_size
+        for b in self._buckets:
+            hb, wb = b["pad"]
+            for s in range(0, len(b["idx"]), bs):
+                idx = np.asarray(b["idx"][s : s + bs])
+                hws = np.asarray(b["hw"][s : s + bs], np.int32)
+                count = len(idx)
+                if count < bs:
+                    idx = np.concatenate(
+                        [idx, np.repeat(idx[-1:], bs - count)])
+                    hws = np.concatenate(
+                        [hws, np.repeat(hws[-1:], bs - count, 0)])
+
+                def load_once(i):
+                    im = self._cache.pop(i, None)
+                    return im if im is not None else self.source.load(i)
+
+                first = load_once(int(idx[0]))
+                imgs = np.zeros((bs, hb, wb, 3), first.dtype)
+                prev_i, prev_im = int(idx[0]), first
+                for j, i in enumerate(idx):
+                    i = int(i)
+                    if i != prev_i:
+                        # a tail batch repeats its last index: decode it once
+                        prev_i, prev_im = i, load_once(i)
+                    im = prev_im
+                    imgs[j, : im.shape[0], : im.shape[1]] = im
+                yield imgs, hws, idx, count
 
     def __iter__(self):
         return _prefetch(self._gen(), self.prefetch_depth)

@@ -1,19 +1,24 @@
 """Recall@N evaluation (port of openibl_tpu/engine/evaluator.py, single
-device, unmasked, no rerank).
+device, no rerank).
 
 The kNN runs on the descriptors' device (ops.distance.topk_nearest); spatial
-NMS and the recall scan are host index math. ``Evaluator.evaluate_sources``
-extracts both sides from image sources (with the model's head, the fused
-kernel on the card) and scores them. The mesh-sharded kNN, the
-k-reciprocal rerank and the loader-driven masked ``evaluate`` come with
-ROADMAP Queue 1 items 12, 10 and 8.
+NMS and the recall scan are host index math. ``Evaluator.evaluate`` scores
+a query loader against a gallery loader; a bucket-padded query loader
+(``PaddedBatchLoader``) goes through the evaluator's ``masked_apply_fn``.
+``Evaluator.evaluate_sources`` extracts both sides from image sources. Both
+read their descriptors with the model's head (the fused kernel on the card)
+and keep them on its device. The mesh-sharded kNN and the k-reciprocal
+rerank come with ROADMAP Queue 1 items 12 and 10.
 """
 
 import numpy as np
 import torch
 
+from openibl_tpu_torch.data.loader import BatchLoader
 from openibl_tpu_torch.ops.distance import topk_nearest
+from openibl_tpu_torch.parallel.extract import extract_features
 from openibl_tpu_torch.utils import f32_precision, to_numpy
+from openibl_tpu_torch.utils.profiling import PhaseTimer
 
 
 def spatial_nms(pred, db_ids, top_n):
@@ -50,12 +55,21 @@ def recalls_from_ranks(sorted_idx, ground_truth, gallery_pids=None,
     return correct_at_n / len(sorted_idx)
 
 
+def _refuse(rerank, nms, gallery_pids):
+    if rerank:
+        raise NotImplementedError(
+            "k-reciprocal rerank is not ported to openibl_tpu_torch yet: "
+            "ROADMAP Queue 1 item 10")
+    if nms and gallery_pids is None:
+        raise ValueError("nms=True requires gallery_pids")
+
+
 def evaluate_descriptors(q_feats, g_feats, ground_truth, gallery_pids=None,
-                         topk=(1, 5, 10), nms=False, print_results=True):
+                         topk=(1, 5, 10), nms=False, rerank=False,
+                         print_results=True):
     """Recall@topk from query and gallery descriptors (tensors on any one
     device, or numpy arrays, searched on the CPU)."""
-    if nms and gallery_pids is None:
-        raise ValueError("nms=True requires gallery_pids")  # before the kNN
+    _refuse(rerank, nms, gallery_pids)  # before the kNN
     k_need = max(topk) * (12 if nms else 1)
     g = torch.as_tensor(g_feats)
     with f32_precision():  # the JAX kNN's Precision.HIGHEST
@@ -71,27 +85,52 @@ def evaluate_descriptors(q_feats, g_feats, ground_truth, gallery_pids=None,
 
 
 class Evaluator:
-    """Binds a model (e.g. ``pipeline.eval_view`` of the trained EmbedNet)
-    and the feature it reads; evaluates image sources end to end."""
+    """Binds a model (e.g. ``pipeline.eval_view`` of the trained EmbedNet),
+    the feature it reads and, for bucket-padded query loaders, its masked
+    forward (e.g. ``model.forward_masked``); evaluates loaders or image
+    sources end to end. Each evaluation's query pass, gallery pass and kNN
+    are phases of ``timer`` ("query", "gallery", "knn"; a ``PhaseTimer``
+    of its own by default)."""
 
-    def __init__(self, model, feature="vlad"):
+    def __init__(self, model, feature="vlad", masked_apply_fn=None,
+                 timer=None):
         self.model = model
         self.feature = feature
+        self.masked_apply_fn = masked_apply_fn
+        self.timer = timer if timer is not None else PhaseTimer()
 
-    def evaluate_sources(self, q_source, db_source, ground_truth, pca=None,
-                         batch_size=32, prefetch=2, print_results=True):
-        """Extract queries and gallery (kept on the model's device), then
-        Recall@1/5/10."""
-        from openibl_tpu_torch.data.loader import BatchLoader
-        from openibl_tpu_torch.parallel.extract import extract_features
+    def extract(self, loader, pca=None, verbose=False):
+        """Descriptors of every item ``loader`` yields, in ascending index
+        order, kept on the model's device."""
+        return extract_features(self.model, loader, pca=pca,
+                                feature=self.feature, verbose=verbose,
+                                masked_apply_fn=self.masked_apply_fn,
+                                device_output=True)
 
-        feats = [
-            extract_features(self.model,
-                             BatchLoader(src, batch_size=batch_size,
-                                         prefetch=prefetch),
-                             pca=pca, feature=self.feature,
-                             device_output=True)
-            for src in (q_source, db_source)
-        ]
-        return evaluate_descriptors(*feats, ground_truth,
-                                    print_results=print_results)
+    def evaluate(self, query_loader, gallery_loader, ground_truth,
+                 gallery_pids=None, pca=None, topk=(1, 5, 10), nms=False,
+                 rerank=False, verbose=False, print_results=True):
+        """Recall@topk of ``query_loader``'s items against
+        ``gallery_loader``'s (a ``BatchLoader`` or a ``PaddedBatchLoader``
+        each)."""
+        _refuse(rerank, nms, gallery_pids)  # before the extraction
+        with self.timer.phase("query"):
+            q_feats = self.extract(query_loader, pca=pca, verbose=verbose)
+        with self.timer.phase("gallery"):
+            g_feats = self.extract(gallery_loader, pca=pca, verbose=verbose)
+        with self.timer.phase("knn"):
+            return evaluate_descriptors(
+                q_feats, g_feats, ground_truth, gallery_pids, topk=topk,
+                nms=nms, rerank=rerank, print_results=print_results)
+
+    def evaluate_sources(self, q_source, db_source, ground_truth,
+                         gallery_pids=None, pca=None, batch_size=32,
+                         prefetch=2, topk=(1, 5, 10), nms=False,
+                         rerank=False, verbose=False, print_results=True):
+        """``evaluate`` over fixed-shape ``BatchLoader``s of two image
+        sources."""
+        return self.evaluate(
+            *(BatchLoader(src, batch_size=batch_size, prefetch=prefetch)
+              for src in (q_source, db_source)),
+            ground_truth, gallery_pids, pca=pca, topk=topk, nms=nms,
+            rerank=rerank, verbose=verbose, print_results=print_results)

@@ -20,8 +20,15 @@ epoch)``, the sampler's from ``RandomState(seed + epoch)``, jitter from
 (seed, epoch, subset), so on one dataset both packages see the same
 subsets, candidates and pixels. Checkpoints are the JAX package's .npz
 (parameters in its layouts); the port's SGD momentum sits beside them.
-SFRS training, ``run_eval``, multi-GPU and on-device jitter come with
-ROADMAP Queue 1 items 10, 8, 12 and 11.
+
+``run_eval`` evaluates a checkpoint (port of the JAX package's
+``run_eval``, one device): fixed-shape query and gallery passes through
+K1, or for Tokyo 24/7 bucket-padded queries through the masked forward
+(eager head) and the gallery through K1; PCA-whitening loaded or fitted on
+demand; spatial NMS.
+
+SFRS training and rerank, multi-GPU and on-device jitter come with ROADMAP
+Queue 1 items 10, 12 and 11.
 """
 
 import os
@@ -33,7 +40,7 @@ import torch
 from openibl_tpu_torch import data as datasets
 from openibl_tpu_torch import models
 from openibl_tpu_torch.data.loader import (
-    BatchLoader, ImageSource, TupleLoader,
+    BatchLoader, ImageSource, PaddedBatchLoader, TupleLoader,
 )
 from openibl_tpu_torch.data.sampler import TupleSampler
 from openibl_tpu_torch.data.transforms import TestTransform, TrainTransform
@@ -45,7 +52,9 @@ from openibl_tpu_torch.ops.kmeans import kmeans
 from openibl_tpu_torch.parallel.extract import extract_features
 from openibl_tpu_torch.utils import (array_file, f32_precision, read_arrays,
                                      resolve_device, write_arrays)
-from openibl_tpu_torch.utils.checkpoint import read_checkpoint, save_checkpoint
+from openibl_tpu_torch.utils.checkpoint import (
+    load_npz_tree, read_checkpoint, save_checkpoint,
+)
 from openibl_tpu_torch.utils.profiling import PhaseTimer
 from openibl_tpu_torch.utils.watchdog import Watchdog
 
@@ -122,6 +131,17 @@ def bootstrap_centroids(cfg, dataset, base, n_images=500, per_image=100,
     return centroids, descs
 
 
+def new_embednet(cfg, rng_seed=0):
+    """The EmbedNet of ``cfg`` (``arch`` in ``compute_dtype``,
+    ``num_clusters``) from a seeded random init, on the CPU."""
+    gen = torch.Generator().manual_seed(rng_seed)
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+        else torch.float32
+    base = models.create(cfg.arch, compute_dtype=dtype, generator=gen)
+    nv = models.NetVLAD(num_clusters=cfg.num_clusters, generator=gen)
+    return models.create("embednet", base=base, net_vlad=nv)
+
+
 def build_model(cfg, dataset, device, rng_seed=0):
     """Backbone + NetVLAD with centroid init, on ``device``, layers before
     ``cfg.train_layers`` frozen. Returns the EmbedNet.
@@ -129,12 +149,8 @@ def build_model(cfg, dataset, device, rng_seed=0):
     The backbone starts from the MatConvNet VGG16 the reference trains from
     when ``{init_dir}/vd16_offtheshelf_conv5_3_max.pth`` exists (loaded
     weights-only), from a seeded random init otherwise."""
-    gen = torch.Generator().manual_seed(rng_seed)
-    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
-        else torch.float32
-    base = models.create(cfg.arch, compute_dtype=dtype, generator=gen)
-    nv = models.NetVLAD(num_clusters=cfg.num_clusters, generator=gen)
-    model = models.create("embednet", base=base, net_vlad=nv)
+    model = new_embednet(cfg, rng_seed)
+    base, nv = model.base, model.net_vlad
     matconvnet = osp.join(cfg.init_dir, "vd16_offtheshelf_conv5_3_max.pth")
     if osp.isfile(matconvnet):
         state = convert.vgg16_state_from_torch(
@@ -364,3 +380,107 @@ def finalize_with_pca(cfg, dataset, sources, model, verbose=True):
         batch_size=cfg.data.test_batch_size, prefetch=cfg.data.workers,
         print_results=verbose,
     )
+
+
+# ---------------------------------------------------------------------------
+# evaluation entry
+# ---------------------------------------------------------------------------
+
+def _load_eval_weights(model, path):
+    """A checkpoint's EmbedNet weights into ``model``: a JAX-layout .npz
+    (bare model tree or pipeline ``params/...``) or a released reference
+    .pth/.pth.tar (loaded weights-only). Every model tensor must come from
+    the file; PCA-layer entries are left out (the reduction is its own
+    file)."""
+    if path.endswith((".pth", ".pth.tar")):
+        state = convert.torch_checkpoint_state(path)
+    else:
+        state = convert.params_from_jax(load_npz_tree(path)[0])
+    own = model.state_dict()
+    model.load_state_dict({k: v for k, v in state.items() if k in own})
+
+
+def _eval_pca(cfg, model, feature):
+    """The PCA-whitening of ``cfg``: loaded from ``cfg.pca_params`` or
+    ``pca_params_<checkpoint stem>`` beside the checkpoint, else fitted on
+    the train split of ``cfg.pca_dataset`` (default: Pitts30k for the
+    pitts and tokyo evals, as the reference's test.py; the eval's own
+    dataset otherwise) and written there."""
+    stem = osp.basename(cfg.checkpoint).split(".")[0] or "model"
+    path = cfg.pca_params or array_file(osp.join(
+        osp.dirname(cfg.checkpoint) or ".", f"pca_params_{stem}.h5"))
+    if osp.isfile(path):
+        return pca_ops.PCA(cfg.pca_dim, whiten=cfg.whiten, params_path=path)
+    name = cfg.pca_dataset or (
+        "pitts" if cfg.data.dataset in ("pitts", "tokyo")
+        else cfg.data.dataset)
+    scale = cfg.pca_scale or ("30k" if name == "pitts" else cfg.data.scale)
+    kwargs = {"scale": scale} if name == "pitts" else {}
+    pca_ds = datasets.create(name, osp.join(cfg.data.data_dir, name),
+                             **kwargs)
+    items = sorted(set(pca_ds.q_train) | set(pca_ds.db_train))
+    src = ImageSource(items, pca_ds.images_dir,
+                      TestTransform(cfg.data.height, cfg.data.width,
+                                    device_normalize=True))
+    feats = _extract(model, src, cfg, feature)
+    return _train_pca(feats, cfg.pca_dim, cfg.whiten, path, seed=0)
+
+
+def run_eval(cfg, device="cuda", mesh=None, verbose=True, timer=None):
+    """Evaluate ``cfg.checkpoint`` on ``cfg.data.dataset``'s test split:
+    Recall@1/5/10, with PCA-whitening when ``cfg.reduction`` and spatial
+    NMS when ``cfg.nms``.
+
+    Runs on ``device`` (the card by default; without one this raises
+    unless ``device="cpu"``). The model is ``eval_view`` of the EmbedNet
+    in ``cfg.compute_dtype``. Tokyo's variable-shape queries run
+    bucket-padded through ``forward_masked``; every fixed-shape batch goes
+    through K1 on the card. ``timer`` (a ``utils.profiling.PhaseTimer``)
+    gets the phases "dataset", "pca_fit", "query", "gallery" and "knn".
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device evaluation is not ported to openibl_tpu_torch "
+            "yet: ROADMAP Queue 1 item 12")
+    if cfg.rerank:
+        raise NotImplementedError(
+            "k-reciprocal rerank is not ported to openibl_tpu_torch yet: "
+            "ROADMAP Queue 1 item 10")
+    device = resolve_device(device)
+    timer = timer if timer is not None else PhaseTimer(device)
+    with timer.phase("dataset"):
+        dataset = load_dataset(cfg)
+    tokyo = cfg.data.dataset == "tokyo"
+    h, w = cfg.data.height, cfg.data.width
+    # uint8 pixels: the model subtracts the mean on the device
+    q_src = ImageSource(dataset.q_test, dataset.images_dir,
+                        TestTransform(h, w, tokyo=tokyo,
+                                      device_normalize=True))
+    db_src = ImageSource(dataset.db_test, dataset.images_dir,
+                         TestTransform(h, w, device_normalize=True))
+
+    model = new_embednet(cfg)
+    if cfg.checkpoint:
+        _load_eval_weights(model, cfg.checkpoint)
+    model.to(device, memory_format=torch.channels_last).eval()
+    model = eval_view(model)
+    feature = "vlad" if cfg.use_vlad else "pool"
+
+    pca = None
+    if cfg.reduction:
+        with timer.phase("pca_fit"):
+            pca = _eval_pca(cfg, model, feature)
+
+    bs, pf = cfg.data.test_batch_size, cfg.data.workers
+    evaluator = Evaluator(
+        model, feature=feature,
+        masked_apply_fn=model.forward_masked if tokyo else None, timer=timer)
+    kwargs = dict(gallery_pids=[it[1] for it in dataset.db_test], pca=pca,
+                  nms=cfg.nms, verbose=verbose, print_results=verbose)
+    if tokyo:
+        return evaluator.evaluate(
+            PaddedBatchLoader(q_src, batch_size=bs, prefetch=pf),
+            BatchLoader(db_src, batch_size=bs, prefetch=pf),
+            dataset.test_pos, **kwargs)
+    return evaluator.evaluate_sources(q_src, db_src, dataset.test_pos,
+                                      batch_size=bs, prefetch=pf, **kwargs)

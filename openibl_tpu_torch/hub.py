@@ -90,10 +90,7 @@ def vgg16_netvlad(pretrained=None, num_clusters=64, pca_dim=4096,
     elif str(pretrained).endswith(".npz"):
         pca_params = _load_npz(model, pretrained, pca_params)
     else:
-        state = convert.load_torch_checkpoint(pretrained)
-        if isinstance(state, dict) and "state_dict" in state:
-            state = state["state_dict"]
-        model.load_state_dict(convert.state_from_torch(state))
+        model.load_state_dict(convert.torch_checkpoint_state(pretrained))
     if pca_params is not None:
         from openibl_tpu_torch.ops.pca import load_pca, pca_projection
 

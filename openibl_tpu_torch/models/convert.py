@@ -62,6 +62,16 @@ def load_torch_checkpoint(path):
             return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def torch_checkpoint_state(path):
+    """A released reference .pth/.pth.tar (a state dict, or a training
+    checkpoint holding one under ``state_dict``), loaded weights-only, as
+    a port state dict (``state_from_torch``)."""
+    state = load_torch_checkpoint(path)
+    if isinstance(state, dict) and "state_dict" in state:
+        state = state["state_dict"]
+    return state_from_torch(state)
+
+
 def _tensor(v):
     return torch.from_numpy(np.array(v, np.float32, order="C"))  # a copy
 

@@ -7,7 +7,9 @@ The head uses the JAX package's factorization,
 one batched (K x P) @ (P x C) product plus a rank-1 correction, never the
 (N, K, C, P) residual tensor. ``netvlad_apply`` (eager) is the plain version
 of the fused CUDA kernel in ops/netvlad_kernel.py; ``fused=True`` routes the
-head through that kernel.
+head through that kernel. The kernel has no masked variant: a masked call
+(``valid_hw``, bucket-padded images) takes the eager head, which zeroes the
+soft-assignment outside each valid extent, as the JAX package does.
 
 Parameters keep the JAX layouts: assign_w (C, K), centroids (K, C), the PCA
 projection w (D_in, D_out) and b (D_out,).
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from openibl_tpu_torch.models.vgg import VGG16
+from openibl_tpu_torch.models.vgg import VGG16, extent_mask
 from openibl_tpu_torch.utils import f32_precision, l2_normalize
 
 
@@ -56,15 +58,15 @@ def netvlad_init_from_clusters(clsts, traindescs):
 
 def netvlad_apply(params, fmap, *, normalize_input=True, fused=False,
                   valid_hw=None):
-    """Soft-assignment VLAD: fmap (N, H, W, C) → (N, K, C) un-normalized."""
-    if valid_hw is not None:
-        if fused:
+    """Soft-assignment VLAD: fmap (N, H, W, C) → (N, K, C) un-normalized.
+
+    ``valid_hw`` (N, 2) gives valid extents at the map's scale: VLAD is a
+    sum over locations, so zeroing the soft-assignment outside them makes
+    the padded aggregation equal the unpadded one."""
+    if fused:
+        if valid_hw is not None:
             raise ValueError("the fused kernel has no masked path; "
                              "use fused=False for bucket-padded inputs")
-        raise NotImplementedError(
-            "masked (valid_hw) NetVLAD is not ported yet: ROADMAP Queue 1 "
-            "item 8 (masked variable-shape eval)")
-    if fused:
         from openibl_tpu_torch.ops.netvlad_kernel import netvlad_fused
 
         return netvlad_fused(fmap, params["assign_w"], params["centroids"],
@@ -76,6 +78,9 @@ def netvlad_apply(params, fmap, *, normalize_input=True, fused=False,
     xf = x.reshape(n, h * w, c)
     logits = torch.matmul(xf, params["assign_w"].float())  # (N, P, K)
     a = torch.softmax(logits, dim=-1)
+    if valid_hw is not None:
+        hw = torch.as_tensor(valid_hw, device=fmap.device).long()
+        a = a * extent_mask(hw, h, w).reshape(n, h * w, 1)
     weighted = torch.matmul(a.transpose(1, 2), xf)  # (N, K, C)
     a_sum = torch.sum(a, dim=1)  # (N, K)
     return weighted - a_sum[:, :, None] * params["centroids"].float()[None]
@@ -130,14 +135,18 @@ class NetVLAD(nn.Module):
         self.centroids.copy_(p["centroids"])
         return self
 
-    def forward(self, fmap):
+    def forward(self, fmap, valid_hw=None):
         params = {"assign_w": self.assign_w, "centroids": self.centroids}
         return netvlad_apply(params, fmap,
                              normalize_input=self.normalize_input,
-                             fused=self.fused)
+                             fused=self.fused and valid_hw is None,
+                             valid_hw=valid_hw)
 
-    def descriptor(self, fmap):
-        """(N, H, W, C) → (N, K*C) intra- and globally normalized."""
+    def descriptor(self, fmap, valid_hw=None):
+        """(N, H, W, C) → (N, K*C) intra- and globally normalized; a masked
+        call (``valid_hw`` at the map's scale) takes the eager head."""
+        if valid_hw is not None:
+            return vlad_postprocess(self(fmap, valid_hw))
         if self.fused:
             from openibl_tpu_torch.ops.netvlad_kernel import netvlad_fused
 
@@ -164,6 +173,10 @@ class PCALayer(nn.Module):
         return pca_layer_apply({"w": self.w, "b": self.b}, x)
 
 
+def _conv5_extent(valid_hw, device):
+    return torch.as_tensor(valid_hw, device=device).long() // 16
+
+
 class EmbedNet(nn.Module):
     """backbone + NetVLAD → (pool_x, 32768-d L2-normalized descriptor)."""
 
@@ -180,6 +193,16 @@ class EmbedNet(nn.Module):
         with f32_precision():
             pool_x, fmap = self.base(images)
             return pool_x, self.net_vlad.descriptor(fmap)
+
+    def forward_masked(self, images, valid_hw):
+        """Forward on bucket-padded images with (N, 2) valid (h, w) extents
+        at image scale: equal to ``forward`` on each image at its own shape.
+        The head is masked at conv5's extent, ``valid_hw // 16`` (each VALID
+        pool floors), and is the eager one."""
+        with f32_precision():
+            pool_x, fmap = self.base(images, valid_hw)
+            return pool_x, self.net_vlad.descriptor(
+                fmap, _conv5_extent(valid_hw, fmap.device))
 
 
 class EmbedNetPCA(nn.Module):
@@ -203,3 +226,10 @@ class EmbedNetPCA(nn.Module):
         with f32_precision():
             _, fmap = self.base(images)
             return self.pca_layer(self.net_vlad.descriptor(fmap))
+
+    def forward_masked(self, images, valid_hw):
+        """Bucket-padded forward; see ``EmbedNet.forward_masked``."""
+        with f32_precision():
+            _, fmap = self.base(images, valid_hw)
+            return self.pca_layer(self.net_vlad.descriptor(
+                fmap, _conv5_extent(valid_hw, fmap.device)))

@@ -6,8 +6,17 @@ The public layout is the JAX package's: images (N, H, W, 3) in, conv5_3 map
 the conv5_3 map permuted back to NHWC is already a contiguous (N, P, C)
 array for the fused NetVLAD kernel. The convolutions stay cuDNN
 (``F.conv2d``), as the JAX package leaves them to XLA. conv5_3 keeps no ReLU
-and no pool (the reference drops features[-2:]). Unmasked forward only: the
-masked variable-shape path is ROADMAP Queue 1 item 8.
+and no pool (the reference drops features[-2:]).
+
+``forward(images, valid_hw)`` is the masked variable-shape forward of the
+JAX package's ``vgg16_apply(valid_hw=...)``: images zero-padded to one
+bucket shape, each with its valid (h, w) extent. The pad region is zeroed
+after the mean subtraction and after every conv+ReLU, and each VALID pool
+floors the extent and re-zeroes at once, so every valid activation equals
+an unpadded run of that image: past the extent a conv sees the same zeros
+its own padding gives at a true border. The zeroing is ``torch.where`` on
+the ``channels_last`` view, which keeps the layout (a multiply would turn
+``-inf * 0`` into NaN and is not the same operation).
 """
 
 import numpy as np
@@ -47,6 +56,16 @@ TRAIN_LAYERS_START = {
 FEATURE_DIM = 512
 
 
+def extent_mask(hw, h, w):
+    """(N, 2) valid extents → (N, 1, h, w) boolean mask for an NCHW view
+    (the JAX package's ``_extent_mask``)."""
+    rows = torch.arange(h, device=hw.device)[None, :, None] < hw[:, 0, None,
+                                                                 None]
+    cols = torch.arange(w, device=hw.device)[None, None, :] < hw[:, 1, None,
+                                                                 None]
+    return (rows & cols)[:, None]
+
+
 def trainable_mask(train_layers="conv5"):
     """{conv name: True if it trains}, the JAX package's trainable_mask
     (openibl_tpu/models/vgg.py:178) per layer."""
@@ -56,8 +75,11 @@ def trainable_mask(train_layers="conv5"):
 
 
 class VGG16(nn.Module):
-    """forward(images) → (pool_x (N, 512) f32, fmap (N, H/16, W/16, 512)).
+    """forward(images, valid_hw=None) → (pool_x (N, 512) f32, fmap (N, H/16,
+    W/16, 512)).
 
+    ``valid_hw`` (N, 2) int gives each padded image its valid extent (see
+    the module docstring); pool_x is then the max over the valid region.
     uint8 images are raw pixels: the mean subtraction happens here, in the
     compute dtype (numerically identical to host normalization, a quarter of
     the host→device bytes). Float images are taken as already normalized.
@@ -96,7 +118,7 @@ class VGG16(nn.Module):
             getattr(self, name).requires_grad_(trains)
         return self
 
-    def forward(self, images):
+    def forward(self, images, valid_hw=None):
         dtype = self.compute_dtype
         if images.dtype == torch.uint8:
             mean = torch.as_tensor(PIXEL_MEAN, dtype=dtype,
@@ -104,17 +126,35 @@ class VGG16(nn.Module):
             images = images.to(dtype) - mean
         # (N, H, W, 3) → NCHW view of NHWC bytes (channels_last)
         x = images.to(dtype).permute(0, 3, 1, 2)
+        hw = mask = None
+        if valid_hw is not None:
+            hw = torch.as_tensor(valid_hw, device=x.device).long()
+            # the pad region after the mean subtraction is -mean, not 0
+            mask = extent_mask(hw, x.shape[2], x.shape[3])
+            x = torch.where(mask, x, 0)
         for name, _, _, relu, pool in VGG16_LAYERS:
             conv = getattr(self, name)
             x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype),
                          padding=1)
             if relu:
                 x = F.relu(x)
+            if mask is not None:
+                x = torch.where(mask, x, 0)  # the bias made the pad non-zero
             if pool:
                 x = F.max_pool2d(x, 2, 2)  # VALID: floors odd sizes
+                if mask is not None:
+                    # a window straddling the old extent leaves values just
+                    # outside the floored one: re-zero before the next conv
+                    hw = hw // 2
+                    mask = extent_mask(hw, x.shape[2], x.shape[3])
+                    x = torch.where(mask, x, 0)
         fmap = x.contiguous(memory_format=torch.channels_last).permute(
             0, 2, 3, 1)  # (N, h, w, C), contiguous
         if self.cut_at_pooling:
             return fmap
-        pool_x = torch.amax(fmap, dim=(1, 2)).float()
+        if mask is None:
+            return torch.amax(fmap, dim=(1, 2)).float(), fmap
+        valid = mask.permute(0, 2, 3, 1)  # (N, h, w, 1)
+        pool_x = torch.amax(torch.where(valid, fmap, float("-inf")),
+                            dim=(1, 2)).float()
         return pool_x, fmap

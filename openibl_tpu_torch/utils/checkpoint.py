@@ -74,6 +74,43 @@ def read_checkpoint(path):
     return tree, meta
 
 
+def load_checkpoint(path, target_tree, strict=False, verbose=False):
+    """Read ``path`` into the structure of ``target_tree`` (nested dicts of
+    arrays), the JAX package's tolerant load: a leaf absent from the file,
+    or stored with another shape, keeps the target's value (with
+    ``strict``, it raises). Returns (tree, metadata)."""
+    stored, meta = read_checkpoint(path)
+
+    def merge(target, source, key):
+        if isinstance(target, dict):
+            return {k: merge(v, source.get(k) if isinstance(source, dict)
+                             else None, f"{key}/{k}" if key else k)
+                    for k, v in target.items()}
+        if source is None or isinstance(source, dict):
+            if strict:
+                raise KeyError(f"missing leaf:{key} in {path}")
+            if verbose:
+                print(f"missing leaf:{key}, keeping target")
+            return target
+        if tuple(np.shape(target)) != source.shape:
+            if strict:
+                raise ValueError(f"shape mismatch at leaf:{key}: "
+                                 f"{source.shape} vs {np.shape(target)}")
+            if verbose:
+                print(f"mismatch at leaf:{key}, keeping target")
+            return target
+        return source
+
+    return merge(target_tree, stored, ""), meta
+
+
+def load_metadata(path):
+    """A checkpoint's metadata alone."""
+    with np.load(path, allow_pickle=False) as data:
+        return json.loads(bytes(data["__meta__"]).decode()).get(
+            "metadata", {})
+
+
 def load_npz_tree(path):
     """Read a checkpoint's model parameters into a nested dict of numpy
     arrays.

@@ -246,9 +246,10 @@ def test_pittsburgh_parser_matches_jax(tmp_path):
 
 def test_dataset_factory():
     assert data.names() == ["pitts", "tokyo", "demo", "synthetic"]
-    for name in ("tokyo", "demo"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            data.create(name, "/nonexistent")
+    with pytest.raises(RuntimeError, match="Dataset not found"):
+        data.create("tokyo", "/nonexistent")
+    with pytest.raises(RuntimeError, match="template"):
+        data.create("demo", "/nonexistent")
     with pytest.raises(KeyError):
         data.create("nope", "/nonexistent")
     with pytest.raises(RuntimeError, match="Dataset not found"):

@@ -1,11 +1,13 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: with no device argument and no usable card, ``hub.vgg16_netvlad``,
-``hub.DescriptorExtractor``, ``serving.RetrievalService`` and the probe
-tool raise instead of running on the CPU; with ``device="cpu"`` each runs.
+``hub.DescriptorExtractor``, ``serving.RetrievalService``, the probe tool,
+``pipeline.run_eval`` and the evaluation examples raise instead of running
+on the CPU; with ``device="cpu"`` each runs.
 ``torch.cuda.is_available`` is patched to False, so the raising cases hold
 on a machine with a card too.
 """
 
+import importlib.util
 import os.path as osp
 import subprocess
 import sys
@@ -16,6 +18,8 @@ from PIL import Image
 
 torch = pytest.importorskip("torch")
 
+from openibl_tpu_torch.config import EvalConfig  # noqa: E402
+from openibl_tpu_torch.engine.pipeline import run_eval  # noqa: E402
 from openibl_tpu_torch.hub import (  # noqa: E402
     DescriptorExtractor, vgg16_netvlad)
 from openibl_tpu_torch.serving import RetrievalService  # noqa: E402
@@ -31,6 +35,15 @@ def _index():
     return {"descriptors": g / np.linalg.norm(g, axis=1, keepdims=True)}
 
 
+def _example_main(name, *argv):
+    """``main(argv)`` of examples/<name>.py, loaded from its file."""
+    spec = importlib.util.spec_from_file_location(
+        name, osp.join(ROOT, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.main(list(argv))
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -41,8 +54,13 @@ def no_card(monkeypatch):
     lambda: DescriptorExtractor(),
     lambda: RetrievalService(_index(), height=H, width=W),
     lambda: mosaic_probe.main([]),
+    lambda: run_eval(EvalConfig()),
+    lambda: _example_main("test_model_torch", "--checkpoint", "m.npz"),
+    lambda: _example_main("test_pitts_best_torch", "--weights", "w.pth"),
+    lambda: _example_main("test_tokyo_best_torch", "--weights", "w.pth"),
 ], ids=["vgg16_netvlad", "DescriptorExtractor", "RetrievalService",
-        "mosaic_probe"])
+        "mosaic_probe", "run_eval", "test_model_torch",
+        "test_pitts_best_torch", "test_tokyo_best_torch"])
 def test_default_device_is_the_card(no_card, entry):
     with pytest.raises(RuntimeError, match=NO_CARD):
         entry()

@@ -37,7 +37,22 @@ masked descriptors against per-shape batch-1 forwards on the card and one
 query per bucket against the CPU, K1 on a gallery batch, run_eval's recalls
 against the per-shape descriptors' and which pass launched K1, and prints
 the masked img/s per bucket (with its fill), the per-shape loop's img/s,
-the masking's cost, the gallery's img/s and run_eval's phases.
+the masking's cost, the gallery's img/s and run_eval's phases; then one
+run_eval with the k-reciprocal rerank (k1 25, lambda 0), its recalls held
+to the CPU's rerank of the same descriptors and its time printed.
+Then SFRS at full width on the training phase's world: the EmbedRegionNet
+(VGG16, K=64, C=512) from seeded weights, and engine/pipeline
+.run_sfrs_training for 2 generations x 1 epoch (SARE-ind, 1 anchor + 1
+positive + 10 negatives + 10 difficult positives a tuple, 3 steps a
+generation), so gen 1 mines with k-reciprocal Jaccard distances (the
+native C++ library built from csrc/rerank.cpp by g++, required: a failed
+build fails the run), trains on the hardest-region negatives and the soft
+loss. It checks K1 on a mining batch, gen 1's tuples from K1's
+descriptors against the plain head's (up to ties), the device Jaccard
+engine against the native one, the losses, the frozen layers after each
+generation and one gen-1 step on the card against the CPU, and prints the
+gen-1 step's tuples/s, run_sfrs_training's phases and which Jaccard
+engine mining used.
 Beside the served path it measures what cuDNN's TF32 (on as
 PyTorch ships it) does to an f32 descriptor at 480x640 and to the top-10
 over the 100k gallery, through the model's parts and through the entry
@@ -49,8 +64,8 @@ netvlad_init_from_clusters, as a trainer initializes it), and the PCA
 layer's bias centres the VLADs on their mean over the bootstrap images, as
 a PCA fit does, because the raw random init maps every image to nearly the
 same descriptor. Each served
-path, the training run and the Tokyo eval run with the kernels' launch
-counts set to 0 just before and read just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
+path, the training run, the SFRS run and the two Tokyo eval runs run with
+the kernels' launch counts set to 0 just before and read just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
 the same bits on a second run, and against its split-precision arithmetic
 run in plain PyTorch; K2 also at 3 and 17 queries. Prints timing
 lines (CUDA events, or the host clock for service.query) with the card's
@@ -76,6 +91,7 @@ own seeds). Needs CUDA; imports no jax.
 """
 
 import argparse
+import dataclasses
 import importlib.util
 import io
 import json
@@ -114,6 +130,9 @@ TF32_OPS_PER_MS, BF16_OPS_PER_MS = 495e9, 989e9
 # step, 3 steps, on the default synthetic world (24 places x 4 images)
 TRAIN_TS, TRAIN_NEG, TRAIN_ITERS = 4, 10, 3
 MINE_REPS = 5  # timed passes of the mining extraction, after a warm-up
+# the SFRS phase: the reference recipe's tuples (1 anchor + 1 positive + 10
+# negatives + 10 difficult positives, one a step), 3 steps a subset
+SFRS_NEG, SFRS_POS, SFRS_ITERS = 10, 10, 3
 # the Tokyo 24/7 phase: 32 panorama directories of 2 gallery images at
 # H x W, 16 queries re-rendered from them at the sizes (w, h) below (both
 # orientations, odd extents; TestTransform(tokyo=True) then sets the
@@ -918,9 +937,10 @@ def tuples_tie_equal(ours, theirs, qf, gf, n_q, tie=5e-3):
     return swaps
 
 
-def train_phase(dev, card, seed):
+def train_phase(dev, card, seed, tmp):
     """(f) The training slice at full width on the card: a synthetic world
-    at 480x640 (24 places x 4 images), the full-width EmbedNet (VGG16,
+    at 480x640 (24 places x 4 images) under ``tmp`` (the SFRS phase reuses
+    it and the centroid cache), the full-width EmbedNet (VGG16,
     K=64) from seeded weights with NetVLAD bootstrapped by
     pipeline.bootstrap_centroids, then pipeline.run_baseline_training for
     one epoch (SARE-ind, tuples of 1 + 1 + 10, 4 a step, 3 steps),
@@ -943,203 +963,532 @@ def train_phase(dev, card, seed):
     from openibl_tpu_torch.utils import f32_precision
     from openibl_tpu_torch.utils.profiling import PhaseTimer
 
-    with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.perf_counter()
+    world = SyntheticDataset(osp.join(tmp, "data", "synthetic"),
+                             img_size=(H, W), seed=seed)
+    print(f"phase train: synthetic world at {H}x{W}, "
+          f"{len(world.q_train)} train queries, {len(world.db_train)} "
+          f"train gallery images, in {time.perf_counter() - t0:.2f} s "
+          f"(host) [{card}]")
+    cfg = TrainConfig(
+        data=DataConfig(dataset="synthetic", scale=None,
+                        data_dir=osp.join(tmp, "data"), height=H,
+                        width=W, test_batch_size=N_IMG),
+        loss_type="sare_ind", tuple_size=TRAIN_TS, neg_num=TRAIN_NEG,
+        iters=TRAIN_ITERS, epochs=1, print_freq=100, seed=seed,
+        logs_dir=osp.join(tmp, "logs"), init_dir=osp.join(tmp, "logs"))
+    dataset = pipeline.load_dataset(cfg)
+    t0 = time.perf_counter()
+    # the run's own initial state: seeded weights, and the centroid
+    # cache bootstrap_centroids writes here and the run reads
+    before = {k: v.detach().clone() for k, v in pipeline.build_model(
+        cfg, dataset, dev).state_dict().items()}
+    torch.cuda.synchronize()
+    print(f"phase train: seeded EmbedNet (K=64) + bootstrap_centroids "
+          f"in {time.perf_counter() - t0:.2f} s [{card}]")
+
+    losses = []
+    step = Trainer.step
+
+    def counted_step(self, images):
+        losses.append(step(self, images))
+        return losses[-1]
+
+    timer = PhaseTimer(dev)
+    Trainer.step = counted_step
+    t0 = time.perf_counter()
+    try:
+        nk.netvlad_fused.launches = 0  # the training path starts
+        model, final, history = pipeline.run_baseline_training(
+            cfg, device=dev, verbose=False, timer=timer)
+        launches = nk.netvlad_fused.launches  # the training path ends
+    finally:
+        Trainer.step = step
+    print(f"phase train: run_baseline_training in "
+          f"{time.perf_counter() - t0:.2f} s; val recall@1/5/10 "
+          f"{[list(map(float, r)) for _, r in history]}, PCA test "
+          f"recall@1/5/10 {list(map(float, final))}; K1 launches "
+          f"{launches} [{card}]")
+    print("  " + timer.summary().replace("\n", "\n  ") + f" [{card}]")
+    check(launches > 0, f"K1 launched {launches} times on the training "
+                        f"path (mining, validation, PCA fit, test)")
+    losses = [float(x) for x in losses]
+    check(len(losses) == TRAIN_ITERS and all(np.isfinite(losses)),
+          f"{len(losses)} train steps of {TRAIN_TS} tuples x "
+          f"{2 + TRAIN_NEG} images, every loss finite: {losses}")
+    check(len(history) == 1 and len(final) == 3
+          and all(0 <= float(r) <= 1 for r in final),
+          "one validation eval and Recall@1/5/10 of the PCA test eval")
+    after = model.state_dict()
+    frozen = [k for k in before if k.startswith("base.conv")
+              and not k.startswith("base.conv5")]
+    moved = [k for k in before if k not in frozen]
+    check(all(torch.equal(before[k], after[k]) for k in frozen)
+          and all(not torch.equal(before[k], after[k]) for k in moved),
+          f"conv1_1..conv4_3 bit-equal to their values before training "
+          f"({len(frozen)} tensors); conv5_* and NetVLAD moved "
+          f"({len(moved)} tensors)")
+    # K1 on one mining batch of the trained model
+    src = ImageSource(dataset.q_train + dataset.db_train,
+                      dataset.images_dir,
+                      TestTransform(H, W, device_normalize=True))
+    n_q = len(dataset.q_train)
+    batch = torch.from_numpy(np.stack(
+        [src.load(n_q + i) for i in range(N_IMG)])).to(dev)
+    with torch.inference_mode(), f32_precision():
+        fmap = model.base(batch)[1]
+        nv = model.net_vlad
+        got = nk.netvlad_fused(fmap, nv.assign_w, nv.centroids,
+                               postprocess=True)
+        ref = nk.netvlad_plain(fmap, nv.assign_w, nv.centroids,
+                               postprocess=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    check(True, f"K1 == plain head on a mining batch {tuple(fmap.shape)}"
+                f" of the trained model, max_abs_err "
+                f"{float((got - ref).abs().max()):.3g} ({gate_ratio(got, ref):.4f}"
+                f" of the rtol {RTOL} / atol {ATOL} gate)")
+
+    # tuples mined from K1's descriptors and from the plain head's
+    subset = np.arange(n_q)
+    mined, feats = [], []
+    for view in (pipeline.eval_view(model), model):
+        g = pipeline._extract(view, ImageSource(
+            dataset.db_train, dataset.images_dir, src.transform), cfg,
+            "vlad")
+        q = pipeline._extract(view, ImageSource(
+            dataset.q_train, dataset.images_dir, src.transform), cfg,
+            "vlad")
+        sampler = TupleSampler(n_q, len(dataset.db_train),
+                               dataset.train_pos, dataset.train_neg,
+                               neg_num=TRAIN_NEG, neg_pool=cfg.neg_pool,
+                               seed=cfg.seed)
+        sampler.set_epoch(cfg.seed)
+        mined.append(sampler.refresh(q, g, subset))
+        feats.append((q.cpu().numpy(), g.cpu().numpy()))
+    swaps = tuples_tie_equal(mined[0], mined[1], *feats[1], n_q)
+    check(swaps is not None,
+          f"tuples mined from K1's descriptors == from the plain head's "
+          f"for {n_q} anchors x (1 + {TRAIN_NEG}), up to ties (sq-dist "
+          f"gap < 5e-3): {swaps} tie swaps")
+
+    # the mining extraction's rate, steady: the 32-image train gallery
+    # through pipeline._extract (BatchLoader, eval_view) MINE_REPS times
+    # after a warm-up pass; beside it the decode alone (host, one
+    # thread, as BatchLoader's producer) and the device alone (the
+    # decoded batches, H2D included)
+    emodel = pipeline.eval_view(model)
+    gsrc = ImageSource(dataset.db_train, dataset.images_dir,
+                       src.transform)
+    n_g = len(gsrc)
+    passes = []
+    for _ in range(1 + MINE_REPS):
         t0 = time.perf_counter()
-        world = SyntheticDataset(osp.join(tmp, "data", "synthetic"),
-                                 img_size=(H, W), seed=seed)
-        print(f"phase train: synthetic world at {H}x{W}, "
-              f"{len(world.q_train)} train queries, {len(world.db_train)} "
-              f"train gallery images, in {time.perf_counter() - t0:.2f} s "
-              f"(host) [{card}]")
-        cfg = TrainConfig(
-            data=DataConfig(dataset="synthetic", scale=None,
-                            data_dir=osp.join(tmp, "data"), height=H,
-                            width=W, test_batch_size=N_IMG),
-            loss_type="sare_ind", tuple_size=TRAIN_TS, neg_num=TRAIN_NEG,
-            iters=TRAIN_ITERS, epochs=1, print_freq=100, seed=seed,
-            logs_dir=osp.join(tmp, "logs"), init_dir=osp.join(tmp, "logs"))
-        dataset = pipeline.load_dataset(cfg)
-        t0 = time.perf_counter()
-        # the run's own initial state: seeded weights, and the centroid
-        # cache bootstrap_centroids writes here and the run reads
-        before = {k: v.detach().clone() for k, v in pipeline.build_model(
-            cfg, dataset, dev).state_dict().items()}
+        pipeline._extract(emodel, gsrc, cfg, "vlad")
         torch.cuda.synchronize()
-        print(f"phase train: seeded EmbedNet (K=64) + bootstrap_centroids "
-              f"in {time.perf_counter() - t0:.2f} s [{card}]")
+        passes.append(time.perf_counter() - t0)
+    passes = passes[1:]
+    t0 = time.perf_counter()
+    for _ in range(MINE_REPS):
+        decoded = [gsrc.load(i) for i in range(n_g)]
+    decode_s = (time.perf_counter() - t0) / MINE_REPS
+    fwd = make_extract_fn(emodel)
+    batches = [np.stack(decoded[s:s + N_IMG])
+               for s in range(0, n_g, N_IMG)]
+    with torch.no_grad():
+        dev_ms = cuda_ms(lambda: [fwd(torch.from_numpy(b).to(dev))
+                                  for b in batches],
+                         reps=MINE_REPS, warmup=1)
+    print(f"timing mining extraction {H}x{W} batch {N_IMG}, {n_g} "
+          f"gallery images, {MINE_REPS} passes after a warm-up: "
+          f"{n_g / statistics.median(passes):.2f} img/s end to end "
+          f"(pipeline._extract, host clock to a synchronize, PNG decode "
+          f"included; passes {', '.join(f'{x:.4f}' for x in passes)} "
+          f"s); decode alone {n_g / decode_s:.2f} img/s (PIL, one "
+          f"thread, host clock); device alone "
+          f"{n_g / dev_ms * 1e3:.2f} img/s (VGG16 f32 + K1 on decoded "
+          f"batches, H2D included, CUDA events) [{card}]")
+    del emodel, decoded, batches
 
-        losses = []
-        step = Trainer.step
-
-        def counted_step(self, images):
-            losses.append(step(self, images))
-            return losses[-1]
-
-        timer = PhaseTimer(dev)
-        Trainer.step = counted_step
-        t0 = time.perf_counter()
-        try:
-            nk.netvlad_fused.launches = 0  # the training path starts
-            model, final, history = pipeline.run_baseline_training(
-                cfg, device=dev, verbose=False, timer=timer)
-            launches = nk.netvlad_fused.launches  # the training path ends
-        finally:
-            Trainer.step = step
-        print(f"phase train: run_baseline_training in "
-              f"{time.perf_counter() - t0:.2f} s; val recall@1/5/10 "
-              f"{[list(map(float, r)) for _, r in history]}, PCA test "
-              f"recall@1/5/10 {list(map(float, final))}; K1 launches "
-              f"{launches} [{card}]")
-        print("  " + timer.summary().replace("\n", "\n  ") + f" [{card}]")
-        check(launches > 0, f"K1 launched {launches} times on the training "
-                            f"path (mining, validation, PCA fit, test)")
-        losses = [float(x) for x in losses]
-        check(len(losses) == TRAIN_ITERS and all(np.isfinite(losses)),
-              f"{len(losses)} train steps of {TRAIN_TS} tuples x "
-              f"{2 + TRAIN_NEG} images, every loss finite: {losses}")
-        check(len(history) == 1 and len(final) == 3
-              and all(0 <= float(r) <= 1 for r in final),
-              "one validation eval and Recall@1/5/10 of the PCA test eval")
-        after = model.state_dict()
-        frozen = [k for k in before if k.startswith("base.conv")
-                  and not k.startswith("base.conv5")]
-        moved = [k for k in before if k not in frozen]
-        check(all(torch.equal(before[k], after[k]) for k in frozen)
-              and all(not torch.equal(before[k], after[k]) for k in moved),
-              f"conv1_1..conv4_3 bit-equal to their values before training "
-              f"({len(frozen)} tensors); conv5_* and NetVLAD moved "
-              f"({len(moved)} tensors)")
-        # K1 on one mining batch of the trained model
-        src = ImageSource(dataset.q_train + dataset.db_train,
-                          dataset.images_dir,
-                          TestTransform(H, W, device_normalize=True))
-        n_q = len(dataset.q_train)
-        batch = torch.from_numpy(np.stack(
-            [src.load(n_q + i) for i in range(N_IMG)])).to(dev)
-        with torch.inference_mode(), f32_precision():
-            fmap = model.base(batch)[1]
-            nv = model.net_vlad
-            got = nk.netvlad_fused(fmap, nv.assign_w, nv.centroids,
-                                   postprocess=True)
-            ref = nk.netvlad_plain(fmap, nv.assign_w, nv.centroids,
-                                   postprocess=True)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
-        check(True, f"K1 == plain head on a mining batch {tuple(fmap.shape)}"
-                    f" of the trained model, max_abs_err "
-                    f"{float((got - ref).abs().max()):.3g} ({gate_ratio(got, ref):.4f}"
-                    f" of the rtol {RTOL} / atol {ATOL} gate)")
-
-        # tuples mined from K1's descriptors and from the plain head's
-        subset = np.arange(n_q)
-        mined, feats = [], []
-        for view in (pipeline.eval_view(model), model):
-            g = pipeline._extract(view, ImageSource(
-                dataset.db_train, dataset.images_dir, src.transform), cfg,
-                "vlad")
-            q = pipeline._extract(view, ImageSource(
-                dataset.q_train, dataset.images_dir, src.transform), cfg,
-                "vlad")
-            sampler = TupleSampler(n_q, len(dataset.db_train),
-                                   dataset.train_pos, dataset.train_neg,
-                                   neg_num=TRAIN_NEG, neg_pool=cfg.neg_pool,
-                                   seed=cfg.seed)
-            sampler.set_epoch(cfg.seed)
-            mined.append(sampler.refresh(q, g, subset))
-            feats.append((q.cpu().numpy(), g.cpu().numpy()))
-        swaps = tuples_tie_equal(mined[0], mined[1], *feats[1], n_q)
-        check(swaps is not None,
-              f"tuples mined from K1's descriptors == from the plain head's "
-              f"for {n_q} anchors x (1 + {TRAIN_NEG}), up to ties (sq-dist "
-              f"gap < 5e-3): {swaps} tie swaps")
-
-        # the mining extraction's rate, steady: the 32-image train gallery
-        # through pipeline._extract (BatchLoader, eval_view) MINE_REPS times
-        # after a warm-up pass; beside it the decode alone (host, one
-        # thread, as BatchLoader's producer) and the device alone (the
-        # decoded batches, H2D included)
-        emodel = pipeline.eval_view(model)
-        gsrc = ImageSource(dataset.db_train, dataset.images_dir,
-                           src.transform)
-        n_g = len(gsrc)
-        passes = []
-        for _ in range(1 + MINE_REPS):
-            t0 = time.perf_counter()
-            pipeline._extract(emodel, gsrc, cfg, "vlad")
-            torch.cuda.synchronize()
-            passes.append(time.perf_counter() - t0)
-        passes = passes[1:]
-        t0 = time.perf_counter()
-        for _ in range(MINE_REPS):
-            decoded = [gsrc.load(i) for i in range(n_g)]
-        decode_s = (time.perf_counter() - t0) / MINE_REPS
-        fwd = make_extract_fn(emodel)
-        batches = [np.stack(decoded[s:s + N_IMG])
-                   for s in range(0, n_g, N_IMG)]
-        with torch.no_grad():
-            dev_ms = cuda_ms(lambda: [fwd(torch.from_numpy(b).to(dev))
-                                      for b in batches],
-                             reps=MINE_REPS, warmup=1)
-        print(f"timing mining extraction {H}x{W} batch {N_IMG}, {n_g} "
-              f"gallery images, {MINE_REPS} passes after a warm-up: "
-              f"{n_g / statistics.median(passes):.2f} img/s end to end "
-              f"(pipeline._extract, host clock to a synchronize, PNG decode "
-              f"included; passes {', '.join(f'{x:.4f}' for x in passes)} "
-              f"s); decode alone {n_g / decode_s:.2f} img/s (PIL, one "
-              f"thread, host clock); device alone "
-              f"{n_g / dev_ms * 1e3:.2f} img/s (VGG16 f32 + K1 on decoded "
-              f"batches, H2D included, CUDA events) [{card}]")
-        del emodel, decoded, batches
-
-        # one step on the card against the same step on the CPU
-        tup = np.stack([src.load(i) for i in mined[1][0]])[None]
-        steps, models_ = [], []
-        t0 = time.perf_counter()
-        for where in (dev, torch.device("cpu")):
-            m = copy.deepcopy(model).to(where)
-            tr = Trainer(m, loss_type=cfg.loss_type, margin=cfg.margin,
-                         lr=cfg.lr, momentum=cfg.momentum,
-                         weight_decay=cfg.weight_decay)
-            tr.init()
-            steps.append(float(tr.step(tup)))
-            models_.append({k: v.detach().cpu() for k, v in
-                            m.state_dict().items()})
-        print(f"  card vs CPU step on one tuple {tup.shape}: "
-              f"{time.perf_counter() - t0:.2f} s [{card}]")
-        rel = abs(steps[0] - steps[1]) / abs(steps[1])
-        ok, worst = rel < 1e-4, 0.0
-        for k in moved:
-            old = after[k].detach().cpu()
-            a, b = models_[0][k], models_[1][k]
-            ulp = float(np.spacing(np.float32(old.abs().max())))
-            ok = ok and torch.allclose(a, b, rtol=1e-3, atol=1e-7)
-            up_a, up_b = a - old, b - old
-            err = float(((up_a - up_b).abs() / (1e-3 * up_b.abs().max()
-                                                 + ulp + 1e-3 * up_b.abs()))
-                        .max())
-            worst = max(worst, err)
-        check(ok and worst <= 1.0,
-              f"one train step on the card (f32, TF32 off) == on the CPU: "
-              f"loss {steps[0]:.7g} vs {steps[1]:.7g} (rel {rel:.2g} < 1e-4),"
-              f" updated parameters within rtol 1e-3, updates at "
-              f"{worst:.3g} of rtol 1e-3 of each layer's largest")
-
-        # the train step's rate: 4 tuples x 12 images a step, on a copy
-        m = copy.deepcopy(model)
+    # one step on the card against the same step on the CPU
+    tup = np.stack([src.load(i) for i in mined[1][0]])[None]
+    steps, models_ = [], []
+    t0 = time.perf_counter()
+    for where in (dev, torch.device("cpu")):
+        m = copy.deepcopy(model).to(where)
         tr = Trainer(m, loss_type=cfg.loss_type, margin=cfg.margin,
-                     lr=cfg.lr)
+                     lr=cfg.lr, momentum=cfg.momentum,
+                     weight_decay=cfg.weight_decay)
         tr.init()
-        tuples = np.stack([np.stack([src.load(i) for i in t])
-                           for t in mined[1][:TRAIN_TS]])
-        ms = cuda_ms(lambda: tr.step(tuples), reps=5, warmup=1)
-        print(f"timing train step sare_ind {H}x{W} f32, {TRAIN_TS} tuples x "
-              f"{2 + TRAIN_NEG} images (conv5 + NetVLAD trained): "
-              f"{TRAIN_TS / ms * 1e3:.3f} tuples/s "
-              f"(sare_train_tuples_per_sec_480x640_float32_ts4; {ms:.2f} "
-              f"ms/step, CUDA events, H2D of the uint8 batch included) "
-              f"[{card}]")
-        del m, tr, model
-        torch.cuda.empty_cache()
+        steps.append(float(tr.step(tup)))
+        models_.append({k: v.detach().cpu() for k, v in
+                        m.state_dict().items()})
+    print(f"  card vs CPU step on one tuple {tup.shape}: "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    rel = abs(steps[0] - steps[1]) / abs(steps[1])
+    ok, worst = rel < 1e-4, 0.0
+    for k in moved:
+        old = after[k].detach().cpu()
+        a, b = models_[0][k], models_[1][k]
+        ulp = float(np.spacing(np.float32(old.abs().max())))
+        ok = ok and torch.allclose(a, b, rtol=1e-3, atol=1e-7)
+        up_a, up_b = a - old, b - old
+        err = float(((up_a - up_b).abs() / (1e-3 * up_b.abs().max()
+                                             + ulp + 1e-3 * up_b.abs()))
+                    .max())
+        worst = max(worst, err)
+    check(ok and worst <= 1.0,
+          f"one train step on the card (f32, TF32 off) == on the CPU: "
+          f"loss {steps[0]:.7g} vs {steps[1]:.7g} (rel {rel:.2g} < 1e-4),"
+          f" updated parameters within rtol 1e-3, updates at "
+          f"{worst:.3g} of rtol 1e-3 of each layer's largest")
+
+    # the train step's rate: 4 tuples x 12 images a step, on a copy
+    m = copy.deepcopy(model)
+    tr = Trainer(m, loss_type=cfg.loss_type, margin=cfg.margin,
+                 lr=cfg.lr)
+    tr.init()
+    tuples = np.stack([np.stack([src.load(i) for i in t])
+                       for t in mined[1][:TRAIN_TS]])
+    ms = cuda_ms(lambda: tr.step(tuples), reps=5, warmup=1)
+    print(f"timing train step sare_ind {H}x{W} f32, {TRAIN_TS} tuples x "
+          f"{2 + TRAIN_NEG} images (conv5 + NetVLAD trained): "
+          f"{TRAIN_TS / ms * 1e3:.3f} tuples/s "
+          f"(sare_train_tuples_per_sec_480x640_float32_ts4; {ms:.2f} "
+          f"ms/step, CUDA events, H2D of the uint8 batch included) "
+          f"[{card}]")
+    del m, tr, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sfrs_tuples_tie_equal(ours, theirs, qf, gf, jac, n_q, neg_num,
+                          tie=5e-3, jac_tie=1e-4):
+    """SFRS tuples agree anchor by anchor: [anchor, positive, negatives] as
+    tuples_tie_equal; each difficult positive equal, or swapped with one
+    whose Jaccard distance (``jac``: anchor -> (Jaccard row over the
+    gallery)) lies within ``jac_tie`` or whose sq-dist lies within ``tie``.
+    Returns the number of tie swaps, or None."""
+    easy = tuples_tie_equal([t[:2 + neg_num] for t in ours],
+                            [t[:2 + neg_num] for t in theirs], qf, gf, n_q,
+                            tie)
+    if easy is None:
+        return None
+    swaps = easy
+    by_anchor = {t[0]: t for t in theirs}
+    for t in ours:
+        u = by_anchor[t[0]]
+        for x, y in zip(t[2 + neg_num:], u[2 + neg_num:]):
+            if x == y:
+                continue
+            jx, jy = jac[t[0]][x - n_q], jac[t[0]][y - n_q]
+            dx, dy = (float(((qf[t[0]] - gf[i - n_q]) ** 2).sum())
+                      for i in (x, y))
+            if abs(jx - jy) >= jac_tie and abs(dx - dy) >= tie:
+                return None
+            swaps += 1
+    return swaps
+
+
+def sfrs_phase(dev, card, seed, tmp):
+    """(f2) SFRS training at full width on the card, on the training phase's
+    synthetic world (480x640) and centroid cache under ``tmp``: the
+    full-width EmbedRegionNet (VGG16, K=64, C=512) from seeded weights with
+    NetVLAD bootstrapped, then pipeline.run_sfrs_training for 2 generations
+    x 1 epoch (SARE-ind, tuple_size 1, neg_num 10, pos_num 10, the
+    reference recipe; 3 steps a subset), so gen 1 mines with Jaccard
+    distances, trains on the hardest-region negatives and the soft loss;
+    validation after each generation and the final PCA eval. K1's count is
+    0 just before the run and read just after. Then its checks: the native
+    rerank library built from csrc/rerank.cpp and loaded (before the run),
+    K1 on a mining batch, gen 1's mined tuples from K1's descriptors
+    against the plain head's, the device Jaccard engine against the native
+    one on the gen-1 union, the losses, the frozen layers after each
+    generation, one gen-1 step on the card against the CPU; and the gen-1
+    step's tuples/s. Returns K1's launches in the run."""
+    import copy
+
+    from openibl_tpu_torch.config import DataConfig, SFRSConfig
+    from openibl_tpu_torch.data.loader import ImageSource
+    from openibl_tpu_torch.data.sampler import DiffTupleSampler
+    from openibl_tpu_torch.data.transforms import TestTransform
+    from openibl_tpu_torch.engine import pipeline
+    from openibl_tpu_torch.engine.sfrs import SFRSTrainer, make_teacher
+    from openibl_tpu_torch.models.convert import params_to_jax
+    from openibl_tpu_torch.ops import _native, rerank
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.utils import f32_precision
+    from openibl_tpu_torch.utils.checkpoint import read_checkpoint
+    from openibl_tpu_torch.utils.profiling import PhaseTimer
+
+    t0 = time.perf_counter()
+    lib = _native.require()  # a failed g++ build fails the run here
+    check(True, f"native rerank library built from "
+                f"openibl_tpu_torch/csrc/rerank.cpp and loaded: "
+                f"{osp.relpath(lib, ROOT)} ({time.perf_counter() - t0:.2f} s"
+                f" with the build)")
+    cfg = SFRSConfig(
+        data=DataConfig(dataset="synthetic", scale=None,
+                        data_dir=osp.join(tmp, "data"), height=H, width=W,
+                        test_batch_size=N_IMG),
+        loss_type="sare_ind", tuple_size=1, neg_num=SFRS_NEG,
+        pos_num=SFRS_POS, iters=SFRS_ITERS, epochs=1, generations=2,
+        print_freq=100, seed=seed, logs_dir=osp.join(tmp, "sfrs_logs"),
+        init_dir=osp.join(tmp, "logs"))
+    dataset = pipeline.load_dataset(cfg)
+    t0 = time.perf_counter()
+    before = {k: v.detach().clone() for k, v in pipeline.build_model(
+        cfg, dataset, dev, region=True).state_dict().items()}
+    torch.cuda.synchronize()
+    print(f"phase sfrs: seeded EmbedRegionNet (K=64) + centroids in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+    steps, engines = [], []
+    step, query = SFRSTrainer.step, rerank.JaccardEngine.query
+
+    def counted_step(self, teacher, images, gen):
+        steps.append((gen, *step(self, teacher, images, gen)))
+        return steps[-1][1:]
+
+    def seen_query(self, *a, **kw):
+        out = query(self, *a, **kw)
+        engines.append(self.last_engine)
+        return out
+
+    timer = PhaseTimer(dev)
+    SFRSTrainer.step, rerank.JaccardEngine.query = counted_step, seen_query
+    t0 = time.perf_counter()
+    try:
+        nk.netvlad_fused.launches = 0  # the SFRS path starts
+        model, final = pipeline.run_sfrs_training(cfg, device=dev,
+                                                  verbose=False, timer=timer)
+        launches = nk.netvlad_fused.launches  # the SFRS path ends
+    finally:
+        SFRSTrainer.step, rerank.JaccardEngine.query = step, query
+    print(f"phase sfrs: run_sfrs_training (2 generations x 1 epoch) in "
+          f"{time.perf_counter() - t0:.2f} s; PCA test recall@1/5/10 "
+          f"{list(map(float, final))}; K1 launches {launches}; Jaccard "
+          f"engine {engines} [{card}]")
+    print("  " + timer.summary().replace("\n", "\n  ") + f" [{card}]")
+    print(f"timing sfrs mining_jaccard (gen 1, the {len(dataset.q_train)} + "
+          f"{len(dataset.db_train)} item union, k1=20): "
+          f"{timer.totals['mining_jaccard']:.4f} s over "
+          f"{timer.counts['mining_jaccard']} subset(s) (host clock to a "
+          f"synchronize) [{card}]")
+    check(launches > 0, f"K1 launched {launches} times on the SFRS path "
+                        f"(mining, validation, PCA fit, test)")
+    check(engines == ["native"],
+          f"gen 1's Jaccard mining ran on the native host engine (auto "
+          f"routing at this union): {engines}")
+    vals = [float(x) for _, lh, ls in steps for x in (lh, ls)]
+    check(len(steps) == 2 * SFRS_ITERS and all(np.isfinite(vals))
+          and [g for g, _, _ in steps] == [0] * SFRS_ITERS + [1] * SFRS_ITERS
+          and all(float(ls) > 0 for _, _, ls in steps),
+          f"{len(steps)} steps of 1 + 1 + {SFRS_NEG} + {SFRS_POS} images "
+          f"(gens 0 and 1), hard and soft losses finite (the soft loss "
+          f"reported at gen 0 too): "
+          f"{[(g, round(float(a), 5), round(float(b), 5)) for g, a, b in steps]}")
+    check(len(final) == 3 and all(0 <= float(r) <= 1 for r in final),
+          "Recall@1/5/10 of the PCA test eval")
+    pristine = params_to_jax(before)["base"]
+    frozen, moved = True, 0
+    for g in range(2):
+        ckpt = read_checkpoint(osp.join(cfg.logs_dir,
+                                        f"checkpoint{g}_0.npz"))[0]
+        for name, leaf in ckpt["params"]["base"].items():
+            same = all(np.array_equal(leaf[k], pristine[name][k])
+                       for k in ("w", "b"))
+            if name.startswith("conv5"):
+                moved += not same
+            else:
+                frozen = frozen and same
+    check(frozen and moved == 6,
+          f"conv1_1..conv4_3 bit-equal to their initial values after each "
+          f"generation; conv5_* moved in both ({moved} of 6 checkpoints x "
+          f"layers)")
+
+    # K1 on one mining batch of the trained model
+    src = ImageSource(dataset.q_train + dataset.db_train, dataset.images_dir,
+                      TestTransform(H, W, device_normalize=True))
+    n_q = len(dataset.q_train)
+    batch = torch.from_numpy(np.stack(
+        [src.load(n_q + i) for i in range(N_IMG)])).to(dev)
+    with torch.inference_mode(), f32_precision():
+        fmap = model.base(batch)[1]
+        nv = model.net_vlad
+        got = nk.netvlad_fused(fmap, nv.assign_w, nv.centroids,
+                               postprocess=True)
+        ref = nk.netvlad_plain(fmap, nv.assign_w, nv.centroids,
+                               postprocess=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    check(True, f"K1 == plain head on an SFRS mining batch "
+                f"{tuple(fmap.shape)}, max_abs_err "
+                f"{float((got - ref).abs().max()):.3g} "
+                f"({gate_ratio(got, ref):.4f} of the rtol {RTOL} / atol "
+                f"{ATOL} gate)")
+    del batch, fmap, got, ref
+
+    # gen 1's mining from K1's descriptors and from the plain head's
+    subset = np.arange(n_q)
+    mined, feats, jacs = [], [], []
+    for view in (pipeline.eval_view(model), model):
+        g = pipeline._extract(view, ImageSource(
+            dataset.db_train, dataset.images_dir, src.transform), cfg, "vlad")
+        q = pipeline._extract(view, ImageSource(
+            dataset.q_train, dataset.images_dir, src.transform), cfg, "vlad")
+        jac = pipeline._jaccard_rows(q, g, subset, cfg.rerank_lambda)
+        sampler = DiffTupleSampler(n_q, len(dataset.db_train),
+                                   dataset.train_pos, dataset.train_neg,
+                                   pos_num=SFRS_POS, pos_pool=cfg.pos_pool,
+                                   neg_num=SFRS_NEG, neg_pool=cfg.neg_pool,
+                                   seed=cfg.seed)
+        sampler.set_epoch(cfg.seed)
+        mined.append(sampler.refresh(q, g, subset, jaccard_rows=jac))
+        feats.append((q, g))
+        jacs.append(jac)
+    qf, gf = (x.cpu().numpy() for x in feats[1])
+    swaps = sfrs_tuples_tie_equal(mined[0], mined[1], qf, gf, jacs[1], n_q,
+                                  SFRS_NEG)
+    # the Jaccard rows move where the two unions' k-reciprocal rankings
+    # differ: only between neighbours at near-equal distances
+    ranks = [rerank.build_v_sparse(torch.cat(f), k1=20)[3] for f in feats]
+    plain = torch.cat(feats[1])
+    d2 = torch.cdist(plain, plain).square().cpu().numpy()
+    moved = np.argwhere(ranks[0] != ranks[1])
+    rank_gap = max((abs(float(d2[i, ranks[0][i, j]] - d2[i, ranks[1][i, j]]))
+                    for i, j in moved), default=0.0)
+    check(swaps is not None and rank_gap < 1e-4,
+          f"gen-1 tuples mined from K1's descriptors == from the plain "
+          f"head's for {n_q} anchors x (1 + {SFRS_NEG} + {SFRS_POS} "
+          f"difficult positives), up to ties (sq-dist < 5e-3, Jaccard < "
+          f"1e-4): {swaps} tie swaps; Jaccard rows K1 vs plain max |gap| "
+          f"{float(np.abs(jacs[0] - jacs[1]).max()):.3g}, the unions' "
+          f"({len(plain)} x 21) rankings differ at {len(moved)} entries, "
+          f"between neighbours whose sq-dists differ by {rank_gap:.3g} (< "
+          f"1e-4) at most; "
+          f"sq-dists of the union: median {float(np.median(d2)):.3g}")
+
+    # the device Jaccard engine against the native one on the gen-1 union
+    union = torch.cat(feats[0])
+    rows, cols, vals_, _, _ = rerank.build_v_sparse(union, k1=20)
+    eng = rerank.JaccardEngine(rows, cols, vals_, len(union), device=dev)
+    t0 = time.perf_counter()
+    host = eng.query(subset, prefer="host")
+    host_s = time.perf_counter() - t0
+    eng.query(subset, prefer="device")  # builds the slabs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_dev = eng.query(subset, prefer="device")
+    dev_s = time.perf_counter() - t0
+    gap = float(np.abs(on_dev - host).max())
+    np.testing.assert_allclose(on_dev, host, rtol=1e-5, atol=1e-6)
+    check(True, f"device Jaccard engine (scatter_add_ on the card) == "
+                f"native host engine on the gen-1 union ({len(union)} "
+                f"items, {len(rows)} V entries, {len(subset)} queries): max "
+                f"|gap| {gap:.3g} (rtol 1e-5 / atol 1e-6); host "
+                f"{host_s * 1e3:.3f} ms, device {dev_s * 1e3:.3f} ms (host "
+                f"clock, D2H included)")
+    del feats, union, eng
+
+    # one gen-1 step on the card against the same step on the CPU, as gen 1
+    # starts: the student at the run's initial weights, gen 1's teacher
+    # (its checkpoint's)
+    teacher = make_teacher(model)
+    pipeline._load_params(teacher, ckpt["teacher"])
+    student = copy.deepcopy(model)
+    student.load_state_dict(before)
+    tup = np.stack([src.load(i) for i in mined[1][0]])[None]
+    runs = {}
+    t0 = time.perf_counter()
+    # the card, the CPU, the card without cuDNN (PyTorch's own convolution
+    # kernels) and the card in f64 (the reference the f32 steps are read
+    # against)
+    for name, where, dt, cudnn in (
+            ("card", dev, torch.float32, True),
+            ("cpu", torch.device("cpu"), torch.float32, True),
+            ("card_no_cudnn", dev, torch.float32, False),
+            ("card_f64", dev, torch.float64, True)):
+        m, t = (copy.deepcopy(x).to(where, dt) for x in (student, teacher))
+        m.base.compute_dtype = t.base.compute_dtype = dt
+        tr = SFRSTrainer(m, loss_type=cfg.loss_type, margin=cfg.margin,
+                         temps=cfg.temperature, soft_weight=cfg.soft_weight,
+                         neg_num=SFRS_NEG, lr=cfg.lr, momentum=cfg.momentum,
+                         weight_decay=cfg.weight_decay)
+        tr.init_generation()
+        prev, torch.backends.cudnn.enabled = torch.backends.cudnn.enabled, \
+            cudnn
+        try:
+            got = [float(x) for x in tr.step(t, tup, 1)]
+        finally:
+            torch.backends.cudnn.enabled = prev
+        runs[name] = (got, {k: v.detach().cpu().double()
+                            for k, v in m.state_dict().items()})
+        del m, t, tr
+    print(f"  card vs CPU SFRS gen-1 step on one tuple {tup.shape} (and "
+          f"the card without cuDNN, the card in f64): "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+    def step_gap(ours, theirs):
+        """(loss rel gap, (updates at x of rtol 1e-3 of each layer's
+        largest, where), (parameters at x of rtol 1e-3 / atol 1e-7, where),
+        parameters within rtol 1e-3 / atol 1e-3 of the layer's largest
+        update)"""
+        rel = max(abs(a - b) / abs(b) for a, b in zip(ours[0], theirs[0]))
+        up_err = par_err = (0.0, None)
+        close = True
+        for k, old in before.items():
+            old = old.cpu().double()
+            a, b = ours[1][k], theirs[1][k]
+            if torch.equal(b, old):
+                close = close and torch.equal(a, old)
+                continue
+            ulp = float(np.spacing(np.float32(old.abs().max())))
+            up_a, up_b = a - old, b - old
+            scale = 1e-3 * float(up_b.abs().max()) + ulp
+            close = close and torch.allclose(a, b, rtol=1e-3, atol=scale)
+            err = float(((up_a - up_b).abs() / (
+                scale + 1e-3 * up_b.abs())).max())
+            up_err = max(up_err, (err, k), key=lambda e: e[0])
+            err = float(((a - b).abs() / (1e-7 + 1e-3 * b.abs())).max())
+            par_err = max(par_err, (err, k), key=lambda e: e[0])
+        return rel, up_err, par_err, close
+
+    def gap_text(gap):
+        rel, up_err, par_err, _ = gap
+        return (f"losses rel {rel:.2g}, updates at {up_err[0]:.3g} of rtol "
+                f"1e-3 of each layer's largest ({up_err[1]}), parameters at "
+                f"{par_err[0]:.3g} of rtol 1e-3 / atol 1e-7 ({par_err[1]})")
+
+    vs_cpu = step_gap(runs["card"], runs["cpu"])
+    check(vs_cpu[0] < 1e-4 and vs_cpu[1][0] <= 1.0 and vs_cpu[3],
+          f"one SFRS gen-1 step on the card (f32, TF32 off) == on the CPU: "
+          f"hard/soft losses {runs['card'][0]} vs {runs['cpu'][0]}; "
+          f"{gap_text(vs_cpu)} (gates: losses 1e-4, updates 1, parameters "
+          f"within rtol 1e-3 / atol 1e-3 of the layer's largest update)")
+    print(f"  the f32 steps against the card's f64 step "
+          f"{runs['card_f64'][0]}: " + "; ".join(
+              f"{name}: {gap_text(step_gap(runs[name], runs['card_f64']))}"
+              for name in ("card", "cpu", "card_no_cudnn")) + f" [{card}]")
+
+    # the gen-1 step's rate: 1 tuple of 1 + 1 + 10 + 10 images a step (one
+    # 22-image student forward and backward, an 11-image teacher forward)
+    m = copy.deepcopy(student)
+    tr = SFRSTrainer(m, loss_type=cfg.loss_type, temps=cfg.temperature,
+                     neg_num=SFRS_NEG, lr=cfg.lr)
+    tr.init_generation()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(lambda: tr.step(teacher, tup, 1), reps=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"timing sfrs train step gen 1 sare_ind {H}x{W} f32, 1 tuple x "
+          f"{2 + SFRS_NEG + SFRS_POS} images (22-image student forward + "
+          f"backward, 11-image teacher forward; conv5 + NetVLAD trained): "
+          f"{1 / ms * 1e3:.3f} tuples/s "
+          f"(sfrs_train_tuples_per_sec_480x640_float32_ts1; {ms:.2f} "
+          f"ms/step, CUDA events, H2D of the uint8 batch included; peak "
+          f"{peak:.2f} GiB) [{card}]")
+    del m, tr, model, teacher, student
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1218,15 +1567,18 @@ def tokyo_world(raw, rng):
     return n + len(db) + len(q)
 
 
-def recalls_tie_equal(a, b, q, g, gt, pids, tie=1e-4, topk=(1, 5, 10)):
+def recalls_tie_equal(a, b, q, g, gt, pids, tie=1e-4, topk=(1, 5, 10),
+                      d=None):
     """Recall@topk ``a`` == ``b``, or they differ only where a query's
     first true positive lies within ``tie`` (squared distance, after NMS
     over 12 x max(topk)) of its k-th candidate, where two kNNs may order
-    near-equal rows either way. Returns (ok, near-ties found)."""
+    near-equal rows either way; ``d`` (Q, G) replaces the squared distances
+    (e.g. reranked ones). Returns (ok, near-ties found)."""
     from openibl_tpu_torch.engine.evaluator import spatial_nms
 
     ties = 0
-    d = torch.cdist(q.float(), g.float()).square().cpu().numpy()
+    if d is None:
+        d = torch.cdist(q.float(), g.float()).square().cpu().numpy()
     for i, row in enumerate(d):
         order = spatial_nms(list(np.argsort(row, kind="stable")), pids,
                             12 * max(topk))
@@ -1249,8 +1601,10 @@ def tokyo_phase(eval_tree, dev, card, seed):
     around Evaluator.extract. Then its checks: every query's masked
     descriptor against its own per-shape batch-1 forward on the card, one
     query per bucket against the CPU, K1 on a gallery batch, run_eval's
-    recalls against the per-shape descriptors'; and its rates. Returns
-    K1's launches in the run."""
+    recalls against the per-shape descriptors'. Then one run_eval with the
+    k-reciprocal rerank (k1 25, lambda 0), its recalls against the CPU's
+    rerank of the same descriptors; and the rates. Returns K1's launches in
+    the eval run and in the rerank run."""
     import copy
 
     from openibl_tpu_torch.config import DataConfig, EvalConfig
@@ -1393,6 +1747,54 @@ def tokyo_phase(eval_tree, dev, card, seed):
                   f"run_eval's vs per-shape max |gap| "
                   f"{float((q_run - q_red).abs().max()):.3g}")
 
+        # the k-reciprocal rerank on the card: run_eval(rerank=True) (k1 25,
+        # lambda 0; the PCA fitted above is loaded), against the CPU's
+        # rerank of the same descriptors
+        from openibl_tpu_torch.ops.rerank import (composite_rank_key,
+                                                  re_ranking)
+
+        rr_cfg = dataclasses.replace(cfg, rerank=True, rr_topk=25,
+                                     lambda_value=0.0)
+        passes.clear()
+        rr_timer = PhaseTimer(dev)
+        Evaluator.extract = counted_extract
+        t0 = time.perf_counter()
+        try:
+            nk.netvlad_fused.launches = 0  # the rerank eval path starts
+            rr_recalls = pipeline.run_eval(rr_cfg, verbose=False,
+                                           timer=rr_timer)
+            rr_launches = nk.netvlad_fused.launches  # ... and ends
+        finally:
+            Evaluator.extract = extract
+        print(f"phase tokyo: run_eval with the k-reciprocal rerank (k1 25, "
+              f"lambda 0) in {time.perf_counter() - t0:.2f} s; Recall@1/5/10"
+              f" {list(map(float, rr_recalls))} (without: "
+              f"{list(map(float, recalls))}); K1 launches {rr_launches} "
+              f"[{card}]")
+        print("  " + rr_timer.summary().replace("\n", "\n  ")
+              + f" [{card}]")
+        print(f"timing tokyo rerank in run_eval ({n_q} queries + "
+              f"{len(dataset.db_test)} gallery, materialized re_ranking): "
+              f"{rr_timer.totals['rerank']:.4f} s (host clock to a "
+              f"synchronize) [{card}]")
+        q_rr, g_rr = (x[2].cpu() for x in passes)
+        want = evaluate_descriptors(q_rr, g_rr, dataset.test_pos, pids,
+                                    nms=True, rerank=True, rr_topk=25,
+                                    print_results=False)
+        sq = lambda a, b: torch.cdist(a, b).square().numpy()  # noqa: E731
+        final = re_ranking(sq(q_rr, g_rr), sq(q_rr, q_rr), sq(g_rr, g_rr),
+                           k1=25, k2=1, lambda_value=0.0, device="cpu")
+        ok, ties = recalls_tie_equal(
+            rr_recalls, want, q_rr, g_rr, dataset.test_pos, pids,
+            d=composite_rank_key(final, sq(q_rr, g_rr)))
+        check(ok and rr_launches > 0,
+              f"rerank on the card: Recall@1/5/10 "
+              f"{list(map(float, rr_recalls))} == the CPU's rerank of the "
+              f"same descriptors {list(map(float, want))}, up to ties "
+              f"({ties} near-ties at a cut, final distance < 1e-4); K1 "
+              f"launched {rr_launches} times (gallery pass)")
+        passes.clear()
+
         # rates: each bucket through the masked forward, the same batch
         # unmasked (K1) and the backbone alone both ways (the re-zeroing's
         # cost), the reference's per-shape batch-1 loop, the gallery (K1)
@@ -1432,7 +1834,7 @@ def tokyo_phase(eval_tree, dev, card, seed):
         del model, emodel, cpu_model, per_shape, masked, ps, gb, fmap
         passes.clear()
         torch.cuda.empty_cache()
-    return launches
+    return launches, rr_launches
 
 
 def main():
@@ -1637,11 +2039,13 @@ def run(dev, seed=0):
     del built
     torch.cuda.empty_cache()
 
-    # -- phase 9b (f): the training slice ------------------------------------
-    train_launches = train_phase(dev, card, seed)
+    # -- phase 9b (f): the training slice; 9d: SFRS on the same world -------
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches = train_phase(dev, card, seed, tmp)
+        sfrs_launches = sfrs_phase(dev, card, seed, tmp)
 
-    # -- phase 9c (h): checkpoint evaluation, Tokyo 24/7 --------------------
-    tokyo_launches = tokyo_phase(eval_tree, dev, card, seed)
+    # -- phase 9c (h): checkpoint evaluation, Tokyo 24/7, and the rerank ----
+    tokyo_launches, rerank_launches = tokyo_phase(eval_tree, dev, card, seed)
     del eval_tree
 
     # -- phase 10: each kernel's host enqueue time, then the launch floor
@@ -1654,10 +2058,13 @@ def run(dev, seed=0):
         {"name": "netvlad_fused", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/netvlad.cu",
          "replaces": "openibl_tpu/ops/netvlad_kernel.py:74",
-         "launches": k1_launches + train_launches + tokyo_launches,
+         "launches": (k1_launches + train_launches + sfrs_launches
+                      + tokyo_launches + rerank_launches),
          "launches_by_path": {"serve_exact": k1_launches,
                               "train": train_launches,
-                              "tokyo_eval": tokyo_launches}, **k1},
+                              "sfrs": sfrs_launches,
+                              "tokyo_eval": tokyo_launches,
+                              "tokyo_eval_rerank": rerank_launches}, **k1},
         {"name": "pq_adc", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/pq_adc.cu",
          "replaces": "openibl_tpu/ops/pq_kernel.py:84",

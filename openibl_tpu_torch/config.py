@@ -2,13 +2,13 @@
 
 Plain dataclasses with the JAX package's fields and defaults. Canonical
 values are the published recipe. ``TrainConfig`` drives
-``engine.pipeline.run_baseline_training``, ``EvalConfig``
-``engine.pipeline.run_eval``; ``SFRSConfig`` comes with its workflow
-(ROADMAP Queue 1 item 10).
+``engine.pipeline.run_baseline_training``, ``SFRSConfig``
+``engine.pipeline.run_sfrs_training`` and ``EvalConfig``
+``engine.pipeline.run_eval``.
 """
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -61,6 +61,18 @@ class TrainConfig:
 
 
 @dataclasses.dataclass
+class SFRSConfig(TrainConfig):
+    loss_type: str = "sare_ind"
+    generations: int = 4
+    temperature: Tuple[float, ...] = (0.07, 0.07, 0.06, 0.05)
+    soft_weight: float = 0.5
+    pos_num: int = 10
+    pos_pool: int = 20
+    epochs: int = 5
+    rerank_lambda: float = 0.1
+
+
+@dataclasses.dataclass
 class EvalConfig:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     checkpoint: str = ""
@@ -69,7 +81,7 @@ class EvalConfig:
     whiten: bool = True  # whitening inside the reduction (reference --nowhiten)
     use_vlad: bool = True  # False evaluates the global max-pool feature
     pca_dim: int = 4096
-    rerank: bool = False  # k-reciprocal rerank: ROADMAP Queue 1 item 10
+    rerank: bool = False  # k-reciprocal rerank (k1 = rr_topk, k2 = 1)
     rr_topk: int = 25
     lambda_value: float = 0.0
     nms: bool = False  # Tokyo spatial NMS

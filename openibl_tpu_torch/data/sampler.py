@@ -1,5 +1,6 @@
-"""Hard-negative tuple sampler: host orchestration + device mining (port of
-openibl_tpu/data/sampler.py:29-132, ``TupleSampler``).
+"""Hard-negative tuple samplers: host orchestration + device mining (port of
+openibl_tpu/data/sampler.py:29-218, ``TupleSampler`` and
+``DiffTupleSampler``).
 
 The host keeps the set-algebra state (candidate sampling by rejection, the
 per-anchor negative cache) and draws from ``np.random.RandomState`` in the
@@ -11,14 +12,17 @@ and tuple order. The distances and choices run on the features' device
   negatives = neg_num nearest among (neg_pool random gallery samples outside
               the UTM 25 m exclusion zone) ∪ (previous refresh's negatives)
 
-``DiffTupleSampler`` (SFRS) comes with ROADMAP Queue 1 item 10, and the
-multi-process helpers ``slice_indices`` / ``shard_tuples`` with multi-GPU
-(item 12).
+``DiffTupleSampler`` (SFRS) adds ``pos_num`` difficult positives: the
+anchor's ``pos_pool`` nearest positives, ranked on the device, of which it
+keeps those the k-reciprocal Jaccard ordering promotes (numpy, stable
+sorts). The multi-process helpers ``slice_indices`` / ``shard_tuples``
+come with multi-GPU (ROADMAP Queue 1 item 12).
 """
 
 import numpy as np
 
-from openibl_tpu_torch.ops.distance import mine_hard_tuples
+from openibl_tpu_torch.ops.distance import (mine_hard_tuples,
+                                            mine_hard_tuples_ranked)
 from openibl_tpu_torch.utils import pad_index_lists, to_numpy
 
 
@@ -122,3 +126,81 @@ class TupleSampler:
         self.tuples = [self.tuples[i] for i in order]
         return self.tuples
 
+
+
+class DiffTupleSampler(TupleSampler):
+    """SFRS sampler: tuples [anchor, positive, negatives..., difficult
+    positives...] with ``pos_num`` difficult positives."""
+
+    def __init__(self, n_query, n_gallery, pos_list, neg_list,
+                 pos_num=10, pos_pool=20, neg_num=10, neg_pool=1000, seed=0):
+        super().__init__(n_query, n_gallery, pos_list, neg_list, neg_num,
+                         neg_pool, seed)
+        self.pos_num = pos_num
+        self.pos_pool = pos_pool
+
+    @staticmethod
+    def _jaccard_promoted(euclid_order, jac_dist, pos_num):
+        """Positives promoted by the Jaccard ordering.
+
+        euclid_order: (P,) gallery ids of the top-P positives, euclid-nearest
+        first; jac_dist: (P,) their Jaccard distances. Keeps (in Jaccard
+        order) the entries whose Jaccard rank beats their euclid rank (gap <
+        0, most-promoted first), then those of equal rank, cut to pos_num.
+        """
+        p = len(euclid_order)
+        jac_rank_to_euclid = np.argsort(jac_dist, kind="stable")  # (P,)
+        gap = np.arange(p) - jac_rank_to_euclid
+        neg_positions = np.arange(p)[gap < 0]
+        neg_sorted = neg_positions[np.argsort(gap[gap < 0], kind="stable")]
+        zero_positions = np.arange(p)[gap == 0]
+        keep = np.concatenate([neg_sorted, zero_positions])[:pos_num]
+        sel = jac_rank_to_euclid[keep]
+        return euclid_order[sel]
+
+    def refresh(self, q_sub_feats, g_feats, sub_ids, jaccard_rows=None):
+        """Mine (anchor, top-1 positive, negatives, difficult positives)
+        tuples. ``jaccard_rows``: optional (S, G) numpy Jaccard distances of
+        the subset anchors to the gallery (ops.rerank); without them the
+        difficult positives are the euclid-nearest ones (generation 0)."""
+        sub_ids = np.asarray(sub_ids)
+        cand = self._sample_candidates(sub_ids)
+        # one device call: mining and the positive ranking share the (S, G)
+        # distance matrix
+        pos_choice, neg_choice, ranked_pos, _ = mine_hard_tuples_ranked(
+            q_sub_feats, g_feats, self.pos_padded[sub_ids], cand,
+            neg_num=self.neg_num, pos_pool=self.pos_pool)
+        pos_choice = to_numpy(pos_choice)
+        neg_choice = to_numpy(neg_choice)
+        if (neg_choice < 0).any():
+            raise ValueError(
+                "not enough valid negative candidates for some anchors "
+                "(gallery too small or exclusion zones too large); "
+                "reduce neg_num or grow neg_pool/gallery"
+            )
+        ranked_pos = to_numpy(ranked_pos)
+        self.neg_cache[sub_ids] = neg_choice
+
+        q = self.n_query
+        self.tuples = []
+        for row, a in enumerate(sub_ids):
+            order = ranked_pos[row]
+            order = order[order >= 0]
+            if jaccard_rows is not None:
+                jd = jaccard_rows[row][order]
+                diff_pos = self._jaccard_promoted(order, jd, self.pos_num)
+            else:
+                diff_pos = order[: self.pos_num]
+            # pad by repeating the nearest positive if too few
+            if len(diff_pos) < self.pos_num:
+                fill = np.full(self.pos_num - len(diff_pos), order[0],
+                               np.int64)
+                diff_pos = np.concatenate([diff_pos, fill])
+            self.tuples.append(
+                [int(a), int(pos_choice[row]) + q]
+                + [int(n) + q for n in neg_choice[row]]
+                + [int(p) + q for p in diff_pos]
+            )
+        order = self.rng.permutation(len(self.tuples))
+        self.tuples = [self.tuples[i] for i in order]
+        return self.tuples

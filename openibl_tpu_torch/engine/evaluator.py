@@ -1,5 +1,5 @@
 """Recall@N evaluation (port of openibl_tpu/engine/evaluator.py, single
-device, no rerank).
+device).
 
 The kNN runs on the descriptors' device (ops.distance.topk_nearest); spatial
 NMS and the recall scan are host index math. ``Evaluator.evaluate`` scores
@@ -7,15 +7,23 @@ a query loader against a gallery loader; a bucket-padded query loader
 (``PaddedBatchLoader``) goes through the evaluator's ``masked_apply_fn``.
 ``Evaluator.evaluate_sources`` extracts both sides from image sources. Both
 read their descriptors with the model's head (the fused kernel on the card)
-and keep them on its device. The mesh-sharded kNN and the k-reciprocal
-rerank come with ROADMAP Queue 1 items 12 and 10.
+and keep them on its device.
+
+``rerank=True`` adds the k-reciprocal rerank (ops.rerank, k2=1): up to
+``_RERANK_DISTMAT_BUDGET_BYTES`` the three distance matrices are computed
+on the descriptors' device and reranked on the host (``re_ranking``);
+above it ``rerank_ranks_streaming`` computes the same ranking from the
+descriptors. Both order by ``composite_rank_key``, so the two sides of the
+threshold agree. The mesh-sharded kNN comes with ROADMAP Queue 1 item 12.
 """
 
 import numpy as np
 import torch
 
 from openibl_tpu_torch.data.loader import BatchLoader
-from openibl_tpu_torch.ops.distance import topk_nearest
+from openibl_tpu_torch.ops.distance import pairwise_sqdist, topk_nearest
+from openibl_tpu_torch.ops.rerank import (composite_rank_key, re_ranking,
+                                          rerank_ranks_streaming)
 from openibl_tpu_torch.parallel.extract import extract_features
 from openibl_tpu_torch.utils import f32_precision, to_numpy
 from openibl_tpu_torch.utils.profiling import PhaseTimer
@@ -55,21 +63,51 @@ def recalls_from_ranks(sorted_idx, ground_truth, gallery_pids=None,
     return correct_at_n / len(sorted_idx)
 
 
-def _refuse(rerank, nms, gallery_pids):
-    if rerank:
-        raise NotImplementedError(
-            "k-reciprocal rerank is not ported to openibl_tpu_torch yet: "
-            "ROADMAP Queue 1 item 10")
+def _refuse(nms, gallery_pids):
     if nms and gallery_pids is None:
         raise ValueError("nms=True requires gallery_pids")
 
 
+# host-RAM budget of the materializing rerank path: its peak holds the three
+# distance matrices (one n² f32 block together), re_ranking's (n, n)
+# normalized copy and the (n_q, n) Jaccard output at once, ~2x4n² bytes
+_RERANK_DISTMAT_BUDGET_BYTES = 2 * 1024**3
+
+
+def _print_recalls(recalls, topk):
+    print("Recall Scores:")
+    for k, r in zip(topk, recalls):
+        print(f"  top-{k:<4}{r:12.1%}")
+
+
+def rerank_order(q_feats, g_feats, k_need, rr_topk=25, lambda_value=0):
+    """The k-reciprocal reranked order (Q, k_need) of the gallery for each
+    query (k1 = ``rr_topk``, k2 = 1), from tensors on one device or numpy
+    arrays (the CPU): materialized below the budget, streamed above."""
+    q = torch.as_tensor(q_feats)
+    g = torch.as_tensor(g_feats).to(q.device)
+    n_union = len(q) + len(g)
+    if 8 * n_union * n_union > _RERANK_DISTMAT_BUDGET_BYTES:
+        order, _ = rerank_ranks_streaming(q, g, k1=rr_topk, k2=1,
+                                          lambda_value=lambda_value,
+                                          k_out=k_need)
+        return order
+    with f32_precision():
+        d_qg, d_qq, d_gg = (to_numpy(pairwise_sqdist(a, b))
+                            for a, b in ((q, g), (q, q), (g, g)))
+    final = re_ranking(d_qg, d_qq, d_gg, k1=rr_topk, k2=1,
+                       lambda_value=lambda_value, device=q.device)
+    key = composite_rank_key(final, d_qg)
+    return np.argsort(key, axis=1)[:, :k_need]
+
+
 def evaluate_descriptors(q_feats, g_feats, ground_truth, gallery_pids=None,
                          topk=(1, 5, 10), nms=False, rerank=False,
-                         print_results=True):
+                         rr_topk=25, lambda_value=0, print_results=True):
     """Recall@topk from query and gallery descriptors (tensors on any one
-    device, or numpy arrays, searched on the CPU)."""
-    _refuse(rerank, nms, gallery_pids)  # before the kNN
+    device, or numpy arrays, searched on the CPU); with ``rerank`` the
+    k-reciprocal reranked recalls are returned (both are printed)."""
+    _refuse(nms, gallery_pids)  # before the kNN
     k_need = max(topk) * (12 if nms else 1)
     g = torch.as_tensor(g_feats)
     with f32_precision():  # the JAX kNN's Precision.HIGHEST
@@ -78,9 +116,23 @@ def evaluate_descriptors(q_feats, g_feats, ground_truth, gallery_pids=None,
     recalls = recalls_from_ranks(to_numpy(idx), ground_truth, gallery_pids,
                                  topk, nms)
     if print_results:
-        print("Recall Scores:")
-        for k, r in zip(topk, recalls):
-            print(f"  top-{k:<4}{r:12.1%}")
+        _print_recalls(recalls, topk)
+    if not rerank:
+        return recalls
+    return reranked_recalls(q_feats, g, ground_truth, gallery_pids, topk,
+                            nms, rr_topk, lambda_value, print_results)
+
+
+def reranked_recalls(q_feats, g_feats, ground_truth, gallery_pids=None,
+                     topk=(1, 5, 10), nms=False, rr_topk=25, lambda_value=0,
+                     print_results=True):
+    """Recall@topk of the k-reciprocal reranked order (``rerank_order``)."""
+    k_need = max(topk) * (12 if nms else 1)
+    order = rerank_order(q_feats, g_feats, k_need, rr_topk, lambda_value)
+    recalls = recalls_from_ranks(order, ground_truth, gallery_pids, topk, nms)
+    if print_results:
+        print("after re-ranking:")
+        _print_recalls(recalls, topk)
     return recalls
 
 
@@ -88,9 +140,9 @@ class Evaluator:
     """Binds a model (e.g. ``pipeline.eval_view`` of the trained EmbedNet),
     the feature it reads and, for bucket-padded query loaders, its masked
     forward (e.g. ``model.forward_masked``); evaluates loaders or image
-    sources end to end. Each evaluation's query pass, gallery pass and kNN
-    are phases of ``timer`` ("query", "gallery", "knn"; a ``PhaseTimer``
-    of its own by default)."""
+    sources end to end. Each evaluation's query pass, gallery pass, kNN and
+    rerank are phases of ``timer`` ("query", "gallery", "knn", "rerank"; a
+    ``PhaseTimer`` of its own by default)."""
 
     def __init__(self, model, feature="vlad", masked_apply_fn=None,
                  timer=None):
@@ -109,28 +161,37 @@ class Evaluator:
 
     def evaluate(self, query_loader, gallery_loader, ground_truth,
                  gallery_pids=None, pca=None, topk=(1, 5, 10), nms=False,
-                 rerank=False, verbose=False, print_results=True):
+                 rerank=False, rr_topk=25, lambda_value=0, verbose=False,
+                 print_results=True):
         """Recall@topk of ``query_loader``'s items against
         ``gallery_loader``'s (a ``BatchLoader`` or a ``PaddedBatchLoader``
-        each)."""
-        _refuse(rerank, nms, gallery_pids)  # before the extraction
+        each). The rerank, when asked, is a phase of its own ("rerank")."""
+        _refuse(nms, gallery_pids)  # before the extraction
         with self.timer.phase("query"):
             q_feats = self.extract(query_loader, pca=pca, verbose=verbose)
         with self.timer.phase("gallery"):
             g_feats = self.extract(gallery_loader, pca=pca, verbose=verbose)
         with self.timer.phase("knn"):
-            return evaluate_descriptors(
+            recalls = evaluate_descriptors(
                 q_feats, g_feats, ground_truth, gallery_pids, topk=topk,
-                nms=nms, rerank=rerank, print_results=print_results)
+                nms=nms, print_results=print_results)
+        if not rerank:
+            return recalls
+        with self.timer.phase("rerank"):
+            return reranked_recalls(q_feats, g_feats, ground_truth,
+                                    gallery_pids, topk, nms, rr_topk,
+                                    lambda_value, print_results)
 
     def evaluate_sources(self, q_source, db_source, ground_truth,
                          gallery_pids=None, pca=None, batch_size=32,
                          prefetch=2, topk=(1, 5, 10), nms=False,
-                         rerank=False, verbose=False, print_results=True):
+                         rerank=False, rr_topk=25, lambda_value=0,
+                         verbose=False, print_results=True):
         """``evaluate`` over fixed-shape ``BatchLoader``s of two image
         sources."""
         return self.evaluate(
             *(BatchLoader(src, batch_size=batch_size, prefetch=prefetch)
               for src in (q_source, db_source)),
             ground_truth, gallery_pids, pca=pca, topk=topk, nms=nms,
-            rerank=rerank, verbose=verbose, print_results=print_results)
+            rerank=rerank, rr_topk=rr_topk, lambda_value=lambda_value,
+            verbose=verbose, print_results=print_results)

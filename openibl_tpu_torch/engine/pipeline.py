@@ -1,6 +1,6 @@
-"""Baseline training workflow: triplet / SARE with hard-negative mining
-(port of openibl_tpu/engine/pipeline.py:49-430, the baseline half, one
-device).
+"""Training and evaluation workflows (port of
+openibl_tpu/engine/pipeline.py, one device): baseline training (triplet /
+SARE with hard-negative mining), SFRS training and checkpoint evaluation.
 
 Per epoch: the StepLR rate, then for each shuffled subset of the training
 queries
@@ -21,14 +21,25 @@ epoch)``, the sampler's from ``RandomState(seed + epoch)``, jitter from
 subsets, candidates and pixels. Checkpoints are the JAX package's .npz
 (parameters in its layouts); the port's SGD momentum sits beside them.
 
+``run_sfrs_training`` trains generations of student/teacher
+self-distillation (SFRS) over an ``EmbedRegionNet``: per generation the
+teacher is a frozen copy of the student, the student re-initializes from
+the run's initial parameters with a fresh SGD and StepLR, gen 0 trains its
+last epoch only; gen 0 mines on descriptor distances alone, gen >= 1 adds
+difficult positives promoted by k-reciprocal Jaccard distances over the
+q∪g union (ops.rerank). Mining and evaluation go through K1 as above;
+training through the eager head. Checkpoints
+``checkpoint{gen}_{epoch}.npz`` hold the student, the optimizer state
+(the JAX package's optax layout), the teacher and the negative cache, so
+either package resumes the other's run mid-generation.
+
 ``run_eval`` evaluates a checkpoint (port of the JAX package's
 ``run_eval``, one device): fixed-shape query and gallery passes through
 K1, or for Tokyo 24/7 bucket-padded queries through the masked forward
 (eager head) and the gallery through K1; PCA-whitening loaded or fitted on
-demand; spatial NMS.
+demand; spatial NMS; the k-reciprocal rerank.
 
-SFRS training and rerank, multi-GPU and on-device jitter come with ROADMAP
-Queue 1 items 10, 12 and 11.
+Multi-GPU and on-device jitter come with ROADMAP Queue 1 items 12 and 11.
 """
 
 import os
@@ -42,16 +53,19 @@ from openibl_tpu_torch import models
 from openibl_tpu_torch.data.loader import (
     BatchLoader, ImageSource, PaddedBatchLoader, TupleLoader,
 )
-from openibl_tpu_torch.data.sampler import TupleSampler
+from openibl_tpu_torch.data.sampler import DiffTupleSampler, TupleSampler
 from openibl_tpu_torch.data.transforms import TestTransform, TrainTransform
 from openibl_tpu_torch.engine.evaluator import Evaluator
+from openibl_tpu_torch.engine.sfrs import SFRSTrainer, make_teacher
 from openibl_tpu_torch.engine.trainer import Trainer
 from openibl_tpu_torch.models import convert
 from openibl_tpu_torch.ops import pca as pca_ops
+from openibl_tpu_torch.ops.distance import pairwise_sqdist
 from openibl_tpu_torch.ops.kmeans import kmeans
+from openibl_tpu_torch.ops.rerank import build_v_sparse, jaccard_for_queries
 from openibl_tpu_torch.parallel.extract import extract_features
 from openibl_tpu_torch.utils import (array_file, f32_precision, read_arrays,
-                                     resolve_device, write_arrays)
+                                     resolve_device, to_numpy, write_arrays)
 from openibl_tpu_torch.utils.checkpoint import (
     load_npz_tree, read_checkpoint, save_checkpoint,
 )
@@ -131,25 +145,30 @@ def bootstrap_centroids(cfg, dataset, base, n_images=500, per_image=100,
     return centroids, descs
 
 
-def new_embednet(cfg, rng_seed=0):
+def new_embednet(cfg, rng_seed=0, region=False):
     """The EmbedNet of ``cfg`` (``arch`` in ``compute_dtype``,
-    ``num_clusters``) from a seeded random init, on the CPU."""
+    ``num_clusters``) from a seeded random init, on the CPU; with
+    ``region`` the EmbedRegionNet (SFRS) of ``cfg.tuple_size``."""
     gen = torch.Generator().manual_seed(rng_seed)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
         else torch.float32
     base = models.create(cfg.arch, compute_dtype=dtype, generator=gen)
     nv = models.NetVLAD(num_clusters=cfg.num_clusters, generator=gen)
+    if region:
+        return models.create("embedregionnet", base=base, net_vlad=nv,
+                             tuple_size=cfg.tuple_size)
     return models.create("embednet", base=base, net_vlad=nv)
 
 
-def build_model(cfg, dataset, device, rng_seed=0):
+def build_model(cfg, dataset, device, rng_seed=0, region=False):
     """Backbone + NetVLAD with centroid init, on ``device``, layers before
-    ``cfg.train_layers`` frozen. Returns the EmbedNet.
+    ``cfg.train_layers`` frozen. Returns the EmbedNet (the EmbedRegionNet
+    with ``region``).
 
     The backbone starts from the MatConvNet VGG16 the reference trains from
     when ``{init_dir}/vd16_offtheshelf_conv5_3_max.pth`` exists (loaded
     weights-only), from a seeded random init otherwise."""
-    model = new_embednet(cfg, rng_seed)
+    model = new_embednet(cfg, rng_seed, region)
     base, nv = model.base, model.net_vlad
     matconvnet = osp.join(cfg.init_dir, "vd16_offtheshelf_conv5_3_max.pth")
     if osp.isfile(matconvnet):
@@ -383,6 +402,185 @@ def finalize_with_pca(cfg, dataset, sources, model, verbose=True):
 
 
 # ---------------------------------------------------------------------------
+# SFRS training
+# ---------------------------------------------------------------------------
+
+def _jaccard_rows(q_all, g_feats, subset, rerank_lambda):
+    """(S, G) numpy Jaccard distances of the subset anchors to the gallery
+    over the q∪g union of descriptors on one device (k1 = 20; with
+    ``rerank_lambda`` mixed with the row-normalized squared distances), for
+    DiffTupleSampler.refresh."""
+    nq = len(q_all)
+    union = torch.cat([q_all, g_feats])
+    rows, cols, vals, _, rm2 = build_v_sparse(union, k1=20)
+    sub = np.asarray(subset)
+    jac = jaccard_for_queries(rows, cols, vals, len(union), sub,
+                              device=union.device)
+    if rerank_lambda:
+        with f32_precision():
+            d2_sub = to_numpy(pairwise_sqdist(
+                union[torch.as_tensor(sub, device=union.device)], union))
+        jac = jac * (1 - rerank_lambda) + (
+            np.square(np.maximum(d2_sub, 0.0)) / rm2[sub][:, None]
+        ) * rerank_lambda
+    # a copy: the (S, N) matrix and the V triplet are freed on return
+    return np.ascontiguousarray(jac[:, nq:])
+
+
+def run_sfrs_training(cfg, device="cuda", mesh=None, verbose=True,
+                      timer=None):
+    """Train ``cfg.generations`` generations of SFRS, select the best
+    (validation Recall@5, strict), fit PCA and evaluate the test split.
+
+    Runs on ``device`` (the card by default; without one this raises
+    unless ``device="cpu"``). ``timer`` (a ``utils.profiling.PhaseTimer``)
+    gets the phases "mining_extract", "mining_jaccard" (gen >= 1),
+    "mining_refresh", "train" and "eval". Returns (model, final test
+    recalls); the model (an EmbedRegionNet) holds the best checkpoint's
+    parameters."""
+    if not cfg.use_vlad:
+        raise ValueError("SFRS training is defined on the VLAD feature "
+                         "(the reference hardcodes vlad=True); "
+                         "use_vlad=False is only supported by the baseline")
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device training is not ported to openibl_tpu_torch yet: "
+            "ROADMAP Queue 1 item 12")
+    if len(cfg.temperature) < cfg.generations:
+        raise ValueError(
+            f"SFRS needs one teacher temperature per generation: got "
+            f"{len(cfg.temperature)} temps for {cfg.generations} generations")
+    device = resolve_device(device)
+    timer = timer if timer is not None else PhaseTimer(device)
+    dataset = load_dataset(cfg)
+    sources = make_sources(cfg, dataset)
+    model = build_model(cfg, dataset, device, region=True)
+    emodel = eval_view(model)
+    # the re-init source of every generation's student
+    pristine = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    evaluator = Evaluator(emodel)
+    trainer = SFRSTrainer(
+        model, loss_type=cfg.loss_type, margin=cfg.margin,
+        temps=cfg.temperature, soft_weight=cfg.soft_weight,
+        neg_num=cfg.neg_num, lr=cfg.lr, momentum=cfg.momentum,
+        weight_decay=cfg.weight_decay, remat=cfg.remat,
+        device_jitter=_use_device_jitter(cfg),
+    )
+    sampler = DiffTupleSampler(
+        len(dataset.q_train), len(dataset.db_train),
+        dataset.train_pos, dataset.train_neg,
+        pos_num=cfg.pos_num, pos_pool=cfg.pos_pool,
+        neg_num=cfg.neg_num, neg_pool=cfg.neg_pool, seed=cfg.seed,
+    )
+
+    best_recall5 = 0.0
+    start_gen, resume, resume_epoch = 0, None, None
+    if cfg.resume:
+        # the student, its optimizer state, the teacher and the mining cache,
+        # mid-generation (the teacher is the checkpoint's, not a copy of the
+        # resumed student)
+        resume, meta = read_checkpoint(cfg.resume)
+        sampler.neg_cache = np.asarray(resume["neg_cache"])
+        start_gen = int(meta.get("generation", 0))
+        resume_epoch = int(meta.get("epoch", -1)) + 1
+        best_recall5 = float(meta.get("best_recall5", 0.0))
+
+    bs, pf = cfg.data.test_batch_size, cfg.data.workers
+    for gen in range(start_gen, cfg.generations):
+        if resume is not None and gen == start_gen:
+            _load_params(model, resume["params"])
+            teacher = make_teacher(model)
+            _load_params(teacher, resume["teacher"])
+            trainer.init_generation()
+            trainer.load_jax_opt_state(resume["opt_state"],
+                                       convert.params_from_jax)
+            start_epoch = resume_epoch
+            resume = None
+        else:
+            # teacher ← student; the student re-initializes; a fresh SGD
+            teacher = make_teacher(model)
+            model.load_state_dict(pristine)
+            trainer.init_generation()
+            start_epoch = cfg.epochs - 1 if gen == 0 else 0
+
+        for epoch in range(start_epoch, cfg.epochs):
+            sampler.set_epoch(cfg.seed + epoch)
+            # a fresh StepLR each generation; gen 0 trains its one epoch at
+            # the base rate (its schedule has taken no step)
+            trainer.set_epoch_lr(0 if gen == 0 else epoch, cfg.step_size,
+                                 cfg.gamma)
+            for subid, subset in enumerate(
+                _subset_splits(len(dataset.q_train), cfg.cache_size, epoch,
+                               cfg.step_size, cfg.seed, cfg.tuple_size)
+            ):
+                jaccard_rows = None
+                with _WATCHDOG.watch(f"mining extraction gen {gen} epoch "
+                                     f"{epoch}-{subid}"), \
+                        timer.phase("mining_extract"):
+                    g_feats = _extract(emodel, sources["db_train"], cfg,
+                                       "vlad")
+                    # gen >= 1 needs every query for the Jaccard union
+                    q_feats = _extract(emodel, sources["q_train"], cfg,
+                                       "vlad",
+                                       indices=None if gen else subset)
+                if gen > 0:
+                    with timer.phase("mining_jaccard"):
+                        jaccard_rows = _jaccard_rows(
+                            q_feats, g_feats, subset, cfg.rerank_lambda)
+                        q_feats = q_feats[torch.as_tensor(
+                            subset, device=q_feats.device)]
+                with timer.phase("mining_refresh"):
+                    tuples = sampler.refresh(q_feats, g_feats, subset,
+                                             jaccard_rows=jaccard_rows)
+                # the tuples are host lists now: free the mining buffers
+                # before training needs the memory
+                del g_feats, q_feats, jaccard_rows
+                tuples = _apply_iters_cap(tuples, cfg.iters, cfg.tuple_size)
+                sources["tuple"].transform.reseed(cfg.seed, gen, epoch, subid)
+                loader = TupleLoader(sources["tuple"], tuples,
+                                     cfg.tuple_size, prefetch=pf)
+                with timer.phase("train"):
+                    lh, ls = trainer.train_epoch(
+                        teacher, loader, gen, print_freq=cfg.print_freq,
+                        log_prefix=f"Gen {gen} Epoch [{epoch}-{subid}]")
+                if verbose:
+                    print(f"Gen {gen} Epoch [{epoch}-{subid}] "
+                          f"hard {lh:.4f} soft {ls:.4f}")
+
+            if verbose:
+                print(timer.summary())
+            if not ((epoch + 1) % cfg.eval_step == 0
+                    or epoch == cfg.epochs - 1):
+                continue
+            with timer.phase("eval"):
+                recalls = evaluator.evaluate_sources(
+                    sources["q_val"], sources["db_val"], dataset.val_pos,
+                    batch_size=bs, prefetch=pf, print_results=verbose)
+            is_best = recalls[1] > best_recall5
+            best_recall5 = max(recalls[1], best_recall5)
+            save_checkpoint(
+                osp.join(cfg.logs_dir, f"checkpoint{gen}_{epoch}.npz"),
+                {"params": convert.params_to_jax(model.state_dict()),
+                 "opt_state": trainer.jax_opt_state(convert.params_to_jax),
+                 "teacher": convert.params_to_jax(teacher.state_dict()),
+                 "neg_cache": sampler.neg_cache},
+                {"epoch": epoch, "generation": gen,
+                 "best_recall5": float(best_recall5)},
+                is_best=is_best,
+            )
+            if verbose:
+                print(f" * gen {gen} epoch {epoch} recall@1/5/10: "
+                      f"{recalls[0]:.1%}/{recalls[1]:.1%}/{recalls[2]:.1%}"
+                      f"{' *' if is_best else ''}")
+
+    best_path = osp.join(cfg.logs_dir, "model_best.npz")
+    if osp.isfile(best_path):
+        _load_params(model, read_checkpoint(best_path)[0]["params"])
+    recalls = finalize_with_pca(cfg, dataset, sources, model, verbose=verbose)
+    return model, recalls
+
+
+# ---------------------------------------------------------------------------
 # evaluation entry
 # ---------------------------------------------------------------------------
 
@@ -428,24 +626,22 @@ def _eval_pca(cfg, model, feature):
 
 def run_eval(cfg, device="cuda", mesh=None, verbose=True, timer=None):
     """Evaluate ``cfg.checkpoint`` on ``cfg.data.dataset``'s test split:
-    Recall@1/5/10, with PCA-whitening when ``cfg.reduction`` and spatial
-    NMS when ``cfg.nms``.
+    Recall@1/5/10, with PCA-whitening when ``cfg.reduction``, spatial
+    NMS when ``cfg.nms`` and the k-reciprocal rerank (k1 ``cfg.rr_topk``,
+    ``cfg.lambda_value``) when ``cfg.rerank``.
 
     Runs on ``device`` (the card by default; without one this raises
     unless ``device="cpu"``). The model is ``eval_view`` of the EmbedNet
     in ``cfg.compute_dtype``. Tokyo's variable-shape queries run
     bucket-padded through ``forward_masked``; every fixed-shape batch goes
     through K1 on the card. ``timer`` (a ``utils.profiling.PhaseTimer``)
-    gets the phases "dataset", "pca_fit", "query", "gallery" and "knn".
+    gets the phases "dataset", "pca_fit", "query", "gallery", "knn" and
+    "rerank".
     """
     if mesh is not None:
         raise NotImplementedError(
             "multi-device evaluation is not ported to openibl_tpu_torch "
             "yet: ROADMAP Queue 1 item 12")
-    if cfg.rerank:
-        raise NotImplementedError(
-            "k-reciprocal rerank is not ported to openibl_tpu_torch yet: "
-            "ROADMAP Queue 1 item 10")
     device = resolve_device(device)
     timer = timer if timer is not None else PhaseTimer(device)
     with timer.phase("dataset"):
@@ -476,7 +672,9 @@ def run_eval(cfg, device="cuda", mesh=None, verbose=True, timer=None):
         model, feature=feature,
         masked_apply_fn=model.forward_masked if tokyo else None, timer=timer)
     kwargs = dict(gallery_pids=[it[1] for it in dataset.db_test], pca=pca,
-                  nms=cfg.nms, verbose=verbose, print_results=verbose)
+                  nms=cfg.nms, rerank=cfg.rerank, rr_topk=cfg.rr_topk,
+                  lambda_value=cfg.lambda_value, verbose=verbose,
+                  print_results=verbose)
     if tokyo:
         return evaluator.evaluate(
             PaddedBatchLoader(q_src, batch_size=bs, prefetch=pf),

@@ -1,14 +1,13 @@
-"""Model factory with the JAX package's registry names.
-
-``embedregionnet`` comes with the SFRS slice (ROADMAP Queue 1 item 10).
-"""
+"""Model factory with the JAX package's registry names."""
 
 from openibl_tpu_torch.models.vgg import VGG16
 from openibl_tpu_torch.models.netvlad import (
     NetVLAD,
     EmbedNet,
     EmbedNetPCA,
+    EmbedRegionNet,
     netvlad_apply,
+    region_vlads,
     netvlad_init_from_clusters,
     vlad_postprocess,
 )
@@ -18,6 +17,7 @@ __factory = {
     "netvlad": NetVLAD,
     "embednet": EmbedNet,
     "embednetpca": EmbedNetPCA,
+    "embedregionnet": EmbedRegionNet,
 }
 
 

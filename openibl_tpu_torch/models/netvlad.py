@@ -14,8 +14,14 @@ soft-assignment outside each valid extent, as the JAX package does.
 Parameters keep the JAX layouts: assign_w (C, K), centroids (K, C), the PCA
 projection w (D_in, D_out) and b (D_out,).
 
-``EmbedNet`` and ``EmbedNetPCA`` run their forward inside
-``utils.f32_precision``: an f32 model computes its convolutions and
+``EmbedRegionNet`` (SFRS) adds the nine region descriptors of each image
+(``region_vlads``: global, four halves, four quarters) and the train
+forward over tuples; its eval forward is ``EmbedNet``'s. The region path
+always takes the eager head: VLAD is a sum over locations, so the halves
+and the global descriptor are sums of the quarters' un-normalized VLADs.
+
+``EmbedNet``, ``EmbedNetPCA`` and ``EmbedRegionNet`` run their forward
+inside ``utils.f32_precision``: an f32 model computes its convolutions and
 products in f32 (no TF32) whatever the caller's global flags, as the JAX
 package's f32 path does; bf16 backbones are unaffected.
 """
@@ -72,18 +78,21 @@ def netvlad_apply(params, fmap, *, normalize_input=True, fused=False,
         return netvlad_fused(fmap, params["assign_w"], params["centroids"],
                              normalize_input=normalize_input)
     n, h, w, c = fmap.shape
-    x = fmap.float()
+    # at least f32: a bf16 map is upcast, an f64 one (a reference run)
+    # stays f64
+    dt = torch.promote_types(fmap.dtype, torch.float32)
+    x = fmap.to(dt)
     if normalize_input:
         x = l2_normalize(x, dim=-1)  # per location, across channels
     xf = x.reshape(n, h * w, c)
-    logits = torch.matmul(xf, params["assign_w"].float())  # (N, P, K)
+    logits = torch.matmul(xf, params["assign_w"].to(dt))  # (N, P, K)
     a = torch.softmax(logits, dim=-1)
     if valid_hw is not None:
         hw = torch.as_tensor(valid_hw, device=fmap.device).long()
         a = a * extent_mask(hw, h, w).reshape(n, h * w, 1)
     weighted = torch.matmul(a.transpose(1, 2), xf)  # (N, K, C)
     a_sum = torch.sum(a, dim=1)  # (N, K)
-    return weighted - a_sum[:, :, None] * params["centroids"].float()[None]
+    return weighted - a_sum[:, :, None] * params["centroids"].to(dt)[None]
 
 
 def vlad_postprocess(vlad):
@@ -233,3 +242,70 @@ class EmbedNetPCA(nn.Module):
             _, fmap = self.base(images, valid_hw)
             return self.pca_layer(self.net_vlad.descriptor(
                 fmap, _conv5_extent(valid_hw, fmap.device)))
+
+
+# region order: [global, top, bottom, left, right, q0..q3], quarter index
+# b = 2*i + j (i the row half, j the column half)
+
+def _quarter_fmap(fmap):
+    """(N, H, W, C) → (N, 4, H/2, W/2, C) quarters [TL, TR, BL, BR]; H and
+    W must be even."""
+    n, h, w, c = fmap.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"region descriptors need an even feature map, "
+                         f"got {h}x{w}")
+    x = fmap.reshape(n, 2, h // 2, 2, w // 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, 4, h // 2, w // 2, c)
+
+
+def region_vlads(net_vlad, fmap):
+    """(N, H, W, C) map → (N, 9, K*C) L2-normalized region descriptors
+    through ``net_vlad``'s eager head: the quarters' VLADs, summed into the
+    halves and the global one, each intra- and globally normalized."""
+    n = fmap.shape[0]
+    quarters = _quarter_fmap(fmap)
+    params = {"assign_w": net_vlad.assign_w, "centroids": net_vlad.centroids}
+    q_vlad = netvlad_apply(params, quarters.reshape((n * 4,)
+                                                    + quarters.shape[2:]),
+                           normalize_input=net_vlad.normalize_input)
+    k, c = q_vlad.shape[1:]
+    q_vlad = q_vlad.reshape(n, 4, k, c)
+    halves = torch.stack([
+        q_vlad[:, 0] + q_vlad[:, 1],  # top
+        q_vlad[:, 2] + q_vlad[:, 3],  # bottom
+        q_vlad[:, 0] + q_vlad[:, 2],  # left
+        q_vlad[:, 1] + q_vlad[:, 3],  # right
+    ], dim=1)
+    global_ = torch.sum(q_vlad, dim=1, keepdim=True)
+    regions = torch.cat([global_, halves, q_vlad], dim=1)  # (N, 9, K, C)
+    regions = l2_normalize(regions, dim=-1).reshape(n, 9, k * c)
+    return l2_normalize(regions, dim=-1)
+
+
+class EmbedRegionNet(EmbedNet):
+    """The SFRS model: ``EmbedNet`` (same parameters, same eval forward)
+    plus the region path. ``apply_train`` takes (T * G, H, W, 3) images,
+    G per tuple with the anchor first, and returns
+      score  (T, G-1, 9, 9): score[t, p, i, j] = <anchor region i, pair p
+             region j>,
+      vlad_a (T, 1, 9, L) and vlad_p (T, G-1, 9, L) region descriptors."""
+
+    def __init__(self, base=None, net_vlad=None, tuple_size=1):
+        super().__init__(base, net_vlad)
+        self.tuple_size = tuple_size
+
+    def region_descriptors(self, images):
+        """(N, H, W, 3) → (N, 9, L) region descriptors (eager head)."""
+        with f32_precision():
+            _, fmap = self.base(images)
+            return region_vlads(self.net_vlad, fmap)
+
+    def apply_train(self, images):
+        regions = self.region_descriptors(images)
+        n, _, dim = regions.shape
+        regions = regions.reshape(self.tuple_size, n // self.tuple_size, 9,
+                                  dim)
+        vlad_a, vlad_p = regions[:, :1], regions[:, 1:]
+        with f32_precision():
+            score = torch.einsum("txil,tpjl->tpij", vlad_a, vlad_p)
+        return score, vlad_a, vlad_p

@@ -6,12 +6,14 @@ top-k (small problems) or streams the gallery in tiles and merges a running
 top-k (O(Q*k) state). f16 and int8 galleries (with per-row scales) stay in
 their storage dtype on the streaming path and are widened one tile at a
 time. The JAX package leaves this step to XLA; here it is ``torch.matmul``
-and ``torch.topk``. ``mine_hard_tuples`` picks each anchor's easiest
-positive and hardest negatives from one f32 (S, G) distance matrix, with
-TF32 off as the JAX package's ``Precision.HIGHEST`` asks.
-``return_rowmax``, ``rank_positives`` and ``mine_hard_tuples_ranked`` come
-with the k-reciprocal rerank and SFRS (ROADMAP Queue 1 item 10); the
-mesh-sharded search with multi-GPU (item 12).
+and ``torch.topk``; ``return_rowmax`` adds each query's largest distance
+over the whole gallery (the k-reciprocal rerank's row normalization).
+``mine_hard_tuples`` picks each anchor's easiest positive and hardest
+negatives from one f32 (S, G) distance matrix, with TF32 off as the JAX
+package's ``Precision.HIGHEST`` asks; ``rank_positives`` orders each
+anchor's positives nearest first, and ``mine_hard_tuples_ranked`` does
+both from one shared matrix (the SFRS refresh). The mesh-sharded search
+comes with multi-GPU (ROADMAP Queue 1 item 12).
 """
 
 import os
@@ -95,7 +97,8 @@ def _smallest(d, k):
 
 
 def topk_nearest(query, gallery, k, chunk=None, full_path=None,
-                 gallery_scale=None, gallery_sqnorm=None):
+                 return_rowmax=False, gallery_scale=None,
+                 gallery_sqnorm=None):
     """k nearest gallery rows per query row by squared L2.
 
     query (Q, D); gallery (N, D) f32, f16 or int8 (with ``gallery_scale``
@@ -103,7 +106,8 @@ def topk_nearest(query, gallery, k, chunk=None, full_path=None,
     (dequantized) rows, precomputed once at index load. The search runs on
     the gallery's device. ``full_path=None`` chooses by the budgets above;
     ``chunk=None`` sizes streaming tiles to ~256 MB. Returns (dists (Q, k)
-    f32, indices (Q, k) int64), nearest first.
+    f32, indices (Q, k) int64), nearest first; with ``return_rowmax`` also
+    each query's largest distance over the whole gallery (Q,).
     """
     g = torch.as_tensor(gallery)
     q = torch.as_tensor(query).to(device=g.device, dtype=torch.float32)
@@ -127,14 +131,21 @@ def topk_nearest(query, gallery, k, chunk=None, full_path=None,
             xy = xy * scale[None, :]
         n2 = sqn if sqn is not None else torch.sum(
             torch.square(_widen(g, scale)), dim=1)
-        return _smallest(q2 + n2[None, :] - 2.0 * xy, k)
-    best_d = best_i = None
+        d = q2 + n2[None, :] - 2.0 * xy
+        best_d, best_i = _smallest(d, k)
+        if return_rowmax:
+            return best_d, best_i, torch.amax(d, dim=1)
+        return best_d, best_i
+    best_d = best_i = best_m = None
     for s in range(0, n, chunk):
         tile = _widen(g[s:s + chunk], None if scale is None
                       else scale[s:s + chunk])
         t2 = (sqn[s:s + chunk] if sqn is not None
               else torch.sum(tile * tile, dim=1))
         d = q2 + t2[None, :] - 2.0 * torch.matmul(q, tile.T)
+        if return_rowmax:
+            tm = torch.amax(d, dim=1)
+            best_m = tm if best_m is None else torch.maximum(best_m, tm)
         td, ti = _smallest(d, min(k, tile.shape[0]))
         ti = ti + s
         if best_d is not None:
@@ -143,6 +154,8 @@ def topk_nearest(query, gallery, k, chunk=None, full_path=None,
             td, pos = _smallest(td, min(k, td.shape[1]))
             ti = torch.gather(ti, 1, pos)
         best_d, best_i = td, ti
+    if return_rowmax:
+        return best_d, best_i, best_m
     return best_d, best_i
 
 
@@ -165,6 +178,28 @@ def _mine_from_d2(d2, pos_idx, cand_idx, neg_num):
     return pos_choice, torch.gather(cand_idx, 1, top)
 
 
+def _rank_from_d2(d2, pos_idx, pos_pool):
+    pos_d = _pos_distances(d2, pos_idx)
+    # stable, as jnp.argsort: equal distances keep the positives' order
+    order = torch.sort(pos_d, dim=1, stable=True).indices[:, :pos_pool]
+    ranked = torch.gather(pos_idx, 1, order)
+    ranked_d = torch.gather(pos_d, 1, order)
+    ranked = torch.where(torch.isfinite(ranked_d), ranked,
+                         torch.full_like(ranked, -1))
+    return ranked, ranked_d
+
+
+def _mining_d2(q_feats, g_feats, *index_arrays):
+    """The f32 (S, G) distance matrix on the gallery's device, and the
+    index arrays there as int64 tensors."""
+    g = torch.as_tensor(g_feats)
+    dev = g.device
+    idx = [torch.as_tensor(a, device=dev).long() for a in index_arrays]
+    with f32_precision():
+        d2 = pairwise_sqdist(torch.as_tensor(q_feats).to(dev), g)
+    return d2, idx
+
+
 def mine_hard_tuples(q_feats, g_feats, pos_idx, cand_idx, neg_num=10):
     """Hard-tuple mining on the features' device.
 
@@ -182,10 +217,27 @@ def mine_hard_tuples(q_feats, g_feats, pos_idx, cand_idx, neg_num=10):
       pos_choice (S,), neg_choice (S, neg_num) int64 tensors on the
       features' device.
     """
-    g = torch.as_tensor(g_feats)
-    dev = g.device
-    pos_idx = torch.as_tensor(pos_idx, device=dev).long()
-    cand_idx = torch.as_tensor(cand_idx, device=dev).long()
-    with f32_precision():
-        d2 = pairwise_sqdist(torch.as_tensor(q_feats).to(dev), g)
+    d2, (pos_idx, cand_idx) = _mining_d2(q_feats, g_feats, pos_idx,
+                                         cand_idx)
     return _mine_from_d2(d2, pos_idx, cand_idx, neg_num)
+
+
+def rank_positives(q_feats, g_feats, pos_idx, pos_pool=20):
+    """Each anchor's UTM positives ranked by current descriptor distance:
+    (S, pos_pool) gallery indices nearest first (-1 padded) and their
+    distances (inf where padded), on the features' device."""
+    d2, (pos_idx,) = _mining_d2(q_feats, g_feats, pos_idx)
+    return _rank_from_d2(d2, pos_idx, pos_pool)
+
+
+def mine_hard_tuples_ranked(q_feats, g_feats, pos_idx, cand_idx, neg_num=10,
+                            pos_pool=20):
+    """``mine_hard_tuples`` and ``rank_positives`` from one shared (S, G)
+    distance matrix (the SFRS refresh needs both; the product is the
+    refresh's largest cost). Returns (pos_choice, neg_choice, ranked,
+    ranked_d)."""
+    d2, (pos_idx, cand_idx) = _mining_d2(q_feats, g_feats, pos_idx,
+                                         cand_idx)
+    pos_choice, neg_choice = _mine_from_d2(d2, pos_idx, cand_idx, neg_num)
+    ranked, ranked_d = _rank_from_d2(d2, pos_idx, pos_pool)
+    return pos_choice, neg_choice, ranked, ranked_d

@@ -32,10 +32,16 @@ def to_numpy(x):
 
 
 def l2_normalize(x, dim=-1, eps=1e-12):
-    """L2-normalize along ``dim`` (safe at zero norm); the same formula as
-    the JAX package's utils.l2_normalize: x / max(||x||, eps)."""
-    norm = torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True))
-    return x / torch.clamp(norm, min=eps)
+    """L2-normalize along ``dim``: x / max(||x||, eps), the JAX package's
+    utils.l2_normalize, written as x / sqrt(max(||x||², eps²)) so that its
+    gradient at a zero vector is finite (1/eps, as
+    torch.nn.functional.normalize's), not NaN: the JAX formula's sqrt has an
+    infinite slope at 0, and a NetVLAD
+    cluster that no location of an image region is assigned to (a sharp
+    soft-assignment underflows to exactly 0) has a zero VLAD. Elsewhere the
+    value and the gradient are the JAX formula's."""
+    sq = torch.sum(x * x, dim=dim, keepdim=True)
+    return x / torch.sqrt(torch.clamp(sq, min=eps * eps))
 
 
 @contextlib.contextmanager

@@ -1,8 +1,9 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: with no device argument and no usable card, ``hub.vgg16_netvlad``,
 ``hub.DescriptorExtractor``, ``serving.RetrievalService``, the probe tool,
-``pipeline.run_eval`` and the evaluation examples raise instead of running
-on the CPU; with ``device="cpu"`` each runs.
+``pipeline.run_eval``, ``pipeline.run_sfrs_training``, the device path of
+``rerank.JaccardEngine`` and the evaluation and SFRS examples raise instead
+of running on the CPU; with ``device="cpu"`` each runs.
 ``torch.cuda.is_available`` is patched to False, so the raising cases hold
 on a machine with a card too.
 """
@@ -18,8 +19,10 @@ from PIL import Image
 
 torch = pytest.importorskip("torch")
 
-from openibl_tpu_torch.config import EvalConfig  # noqa: E402
-from openibl_tpu_torch.engine.pipeline import run_eval  # noqa: E402
+from openibl_tpu_torch.config import EvalConfig, SFRSConfig  # noqa: E402
+from openibl_tpu_torch.engine.pipeline import (  # noqa: E402
+    run_eval, run_sfrs_training)
+from openibl_tpu_torch.ops.rerank import JaccardEngine  # noqa: E402
 from openibl_tpu_torch.hub import (  # noqa: E402
     DescriptorExtractor, vgg16_netvlad)
 from openibl_tpu_torch.serving import RetrievalService  # noqa: E402
@@ -58,9 +61,15 @@ def no_card(monkeypatch):
     lambda: _example_main("test_model_torch", "--checkpoint", "m.npz"),
     lambda: _example_main("test_pitts_best_torch", "--weights", "w.pth"),
     lambda: _example_main("test_tokyo_best_torch", "--weights", "w.pth"),
+    lambda: run_sfrs_training(SFRSConfig()),
+    lambda: _example_main("train_sfrs_torch"),
+    lambda: JaccardEngine(np.zeros(1, np.int32), np.zeros(1, np.int32),
+                          np.ones(1, np.float32), 1).query([0],
+                                                           prefer="device"),
 ], ids=["vgg16_netvlad", "DescriptorExtractor", "RetrievalService",
         "mosaic_probe", "run_eval", "test_model_torch",
-        "test_pitts_best_torch", "test_tokyo_best_torch"])
+        "test_pitts_best_torch", "test_tokyo_best_torch",
+        "run_sfrs_training", "train_sfrs_torch", "JaccardEngine_device"])
 def test_default_device_is_the_card(no_card, entry):
     with pytest.raises(RuntimeError, match=NO_CARD):
         entry()

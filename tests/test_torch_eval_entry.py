@@ -1,8 +1,10 @@
 """The port's checkpoint evaluation held to the JAX package's on the CPU:
 the Tokyo 24/7 dataset's arrangement, ``run_eval`` on one JAX .npz
 checkpoint (Tokyo with bucket-padded masked queries, NMS and on-demand PCA;
-Pitts at a fixed shape), the released-.pth path, the refusals, the
-serialization helpers and the ``examples/test_model_torch.py`` entry point.
+Pitts at a fixed shape; both with the k-reciprocal rerank), the evaluator's
+materialized and streaming rerank branches, the released-.pth path, the
+refusals, the serialization helpers and the ``examples/test_model_torch.py``
+entry point.
 
 Both packages' ``run_eval`` read the same checkpoint, written once by the
 JAX package's ``save_checkpoint``. The descriptors each run scores are
@@ -233,13 +235,17 @@ def _run_both(world, monkeypatch, dataset, timer=None, **kw):
     ("tokyo", dict(nms=True, reduction=True, pca_dataset="tokyo",
                    pca_dim=4)),
     ("pitts", {}),
-], ids=["tokyo_nms", "tokyo_nms_pca", "pitts_fixed"])
+    ("tokyo", dict(nms=True, rerank=True, rr_topk=6, lambda_value=0.3)),
+    ("pitts", dict(rerank=True)),
+], ids=["tokyo_nms", "tokyo_nms_pca", "pitts_fixed", "tokyo_nms_rerank",
+        "pitts_rerank"])
 def test_run_eval_matches_jax(world, monkeypatch, dataset, kw):
     timer = PhaseTimer("cpu")
     cfg, got, want, ours, theirs = _run_both(world, monkeypatch, dataset,
                                              timer=timer, **kw)
     assert set(timer.totals) == {"dataset", "query", "gallery", "knn"} | (
-        {"pca_fit"} if cfg.reduction else set())
+        {"pca_fit"} if cfg.reduction else set()) | (
+        {"rerank"} if cfg.rerank else set())
     assert len(ours) == len(theirs) == 1
     (q, g), (jq, jg) = ours[0], theirs[0]
     np.testing.assert_allclose(q, jq, rtol=RTOL, atol=ATOL)
@@ -288,9 +294,8 @@ def test_run_eval_refuses_a_checkpoint_that_lacks_tensors(world, tmp_path):
 
 
 @pytest.mark.parametrize("kw,exc,item", [
-    (dict(cfg=dict(rerank=True)), NotImplementedError, "item 10"),
     (dict(mesh=object()), NotImplementedError, "item 12"),
-], ids=["rerank", "mesh"])
+], ids=["mesh"])
 def test_run_eval_refuses_unported_paths(world, kw, exc, item):
     cfg, _ = _cfgs(world, "tokyo", **kw.get("cfg", {}))
     with pytest.raises(exc, match=item):
@@ -298,12 +303,51 @@ def test_run_eval_refuses_unported_paths(world, kw, exc, item):
                           verbose=False)
 
 
-def test_evaluator_refuses_rerank_before_extracting():
+def test_evaluator_refuses_nms_without_pids_before_extracting():
     ev = evaluator.Evaluator(None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ev.evaluate(None, None, [], rerank=True)
     with pytest.raises(ValueError, match="gallery_pids"):
-        ev.evaluate(None, None, [], nms=True)
+        ev.evaluate(None, None, [], nms=True, rerank=True)
+
+
+def _clusters(seed, n_q, n_g, d=32, n_places=6):
+    """Unit descriptors around ``n_places`` places; the ground truth of a
+    query is its place's gallery rows, the place its panorama id."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(n_places, d)
+    gp, qp = np.arange(n_g) % n_places, rng.randint(0, n_places, n_q)
+    g = centers[gp] + 0.9 * rng.randn(n_g, d)
+    q = centers[qp] + 0.9 * rng.randn(n_q, d)
+    g = (g / np.linalg.norm(g, axis=1, keepdims=True)).astype(np.float32)
+    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+    gt = [list(np.flatnonzero(gp == p)) for p in qp]
+    return q, g, gt, list(gp)
+
+
+@pytest.mark.parametrize("nms", [False, True])
+def test_rerank_branches_agree_and_match_jax(monkeypatch, nms):
+    """evaluate_descriptors(rerank=True) on both sides of the memory
+    threshold: the materialized re_ranking and the streaming path give the
+    same reranked order, and the JAX package's recalls on each side."""
+    q, g, gt, pids = _clusters(1, 10, 60)
+    kw = dict(gallery_pids=pids, nms=nms, rerank=True, rr_topk=8,
+              print_results=False)
+    k_need = 10 * (12 if nms else 1)
+    order = evaluator.rerank_order(torch.from_numpy(q), torch.from_numpy(g),
+                                   min(k_need, len(g)), rr_topk=8)
+    got = evaluator.evaluate_descriptors(q, g, gt, **kw)
+    want = jevaluator.evaluate_descriptors(q, g, gt, **kw)
+    for module in (evaluator, jevaluator):
+        monkeypatch.setattr(module, "_RERANK_DISTMAT_BUDGET_BYTES", 0)
+    streamed = evaluator.rerank_order(q, g, min(k_need, len(g)), rr_topk=8)
+    np.testing.assert_array_equal(streamed, order)
+    np.testing.assert_array_equal(
+        evaluator.evaluate_descriptors(q, g, gt, **kw), got)
+    np.testing.assert_array_equal(
+        jevaluator.evaluate_descriptors(q, g, gt, **kw), want)
+    np.testing.assert_array_equal(got, want)
+    plain = evaluator.evaluate_descriptors(q, g, gt, gallery_pids=pids,
+                                           nms=nms, print_results=False)
+    assert len(got) == len(plain) == 3
 
 
 # ---------------------------------------------------------------------------

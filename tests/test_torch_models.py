@@ -61,9 +61,10 @@ def _images(seed, dtype=np.uint8, n=2):
 
 
 def test_registry_names():
-    assert models.names() == ["embednet", "embednetpca", "netvlad", "vgg16"]
+    assert models.names() == ["embednet", "embednetpca", "embedregionnet",
+                              "netvlad", "vgg16"] == jmodels.names()
     with pytest.raises(KeyError):
-        models.create("embedregionnet")
+        models.create("resnet50")
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])

@@ -2,17 +2,30 @@
 
   python3 chip_smoke.py
 
-Builds the port's three CUDA libraries from this checkout, one nvcc each,
+Builds the port's four CUDA libraries from this checkout, one nvcc each,
 in parallel: the fused NetVLAD head (K1, csrc/netvlad.cu), the PQ ADC tile
-scorer (K2, csrc/pq_adc.cu) and the six kernels of the Mosaic layout probes
-(P1-P7, csrc/mosaic_probe.cu). Holds each to its plain PyTorch version on
-the card at the main path's shapes (the probes at the TPU script's own toy
+scorer (K2, csrc/pq_adc.cu), the six kernels of the Mosaic layout probes
+(P1-P7, csrc/mosaic_probe.cu) and the int8 3x3 convolution with the fused
+requantize epilogue (K3, csrc/quant_conv.cu). Holds each to its plain
+PyTorch version on the card at the main path's shapes (the probes at the TPU script's own toy
 sizes, each row driven through the port's probe tool as its own path),
 then drives the serving path at full width:
 VGG16 + NetVLAD (K=64) + PCA 32768→4096 at 480x640, a RetrievalService over
 a 100,000 x 4096 f32 gallery with 32 planted rows, queries through
 examples/serve_torch.py's HTTP handler on localhost, and Recall@1 over the
-planted rows. Then the index family over the same gallery, built on the
+planted rows. Then the int8 backbone (ops/quant.py) served: a
+RetrievalService with quant_backbone=True over the same gallery,
+calibrated on four frames; K3 held to its plain version bit for bit at the
+eleven quantized layers' shapes (batch 1, the model's own activations, f32
+and bf16 prefix), on a second run, through the masked forward at a ragged
+odd extent and with quant_from="conv1_1" (Cin = 3, padded); every planted
+row at top-1; the conv5_3 map against the f32 model's (rel < 0.08, cosine
+> 0.995), each int8 descriptor's nearest f32 descriptor its own image's,
+and the VLAD and served descriptors' cosines against the f32 model's;
+extraction img/s with an f32 and a bf16 prefix under bench.py's ``_int8``
+names; the exact query p50; and each layer's K3 time at batch 16 beside
+its bound, its plain version, torch._int_mm on the same GEMM and cuDNN's
+bf16 convolution. Then the index family over the same gallery, built on the
 card (PQ m=64, OPQ, IVF and IVFADC with 256 cells), and its served modes:
 a codes-only PQ index, IVFADC, the PQ re-rank and full-width IVF, each
 through a RetrievalService (PQ also through HTTP) with its Recall@1/5/10.
@@ -58,6 +71,7 @@ PyTorch ships it) does to an f32 descriptor at 480x640 and to the top-10
 over the 100k gallery, through the model's parts and through the entry
 point, which runs in f32 whatever the flag.
 
+The quant phase's K1 and K3 counts cover its served queries.
 Weights are random from a seed; the NetVLAD layer is bootstrapped from
 clusters of the model's own conv5 features (the package's
 netvlad_init_from_clusters, as a trainer initializes it), and the PCA
@@ -74,8 +88,9 @@ per call beside its bytes/operations bound (the larger of its bytes over
 3.35 TB/s and its operations over the peak for their type, the H100 SXM
 data sheet's: f32 on CUDA cores 67 TFLOP/s; K1's split-precision products
 on the tensor cores, 3 TF32 products at 495 TFLOP/s, with the f32
-CUDA-core bound of the same products beside it) and, where one PyTorch
-call computes the same function, that call's time. P6 and P7 also run at
+CUDA-core bound of the same products beside it; K3's int8 products at
+1,979 TOPS) and, where one PyTorch call computes the same function, that
+call's time (K3 has none: two yardsticks instead). P6 and P7 also run at
 a K2-sized shape, one query's LUT at m=64 (64, 256) against the served
 gallery's 100,000 codes, checked bit for bit and timed beside their bound
 and yardstick (not entries of the kernels line). Then, after every timed
@@ -121,11 +136,13 @@ K2_TOL = 1e-5
 K2_ROWS = (1_000_000, 999_983, GALLERY)  # 1M codes, a ragged N, main path
 PQ_M, NLIST, NPROBE, SHORTLIST = 64, 256, 16, 256
 KERNELS = {"netvlad": ["netvlad.cu"], "pq_adc": ["pq_adc.cu"],
-           "mosaic_probe": ["mosaic_probe.cu"]}
+           "mosaic_probe": ["mosaic_probe.cu"],
+           "quant_conv": ["quant_conv.cu"]}
 # H100 SXM at 700 W (data sheet): HBM bytes, f32 CUDA-core operations and
 # dense tensor-core operations (TF32, bf16) per ms
 HBM_BYTES_PER_MS, F32_OPS_PER_MS = 3.35e9, 67e9
 TF32_OPS_PER_MS, BF16_OPS_PER_MS = 495e9, 989e9
+INT8_OPS_PER_MS = 1979e9  # dense int8 tensor-core operations
 # the training phase: tuples of 1 anchor + 1 positive + 10 negatives, 4 a
 # step, 3 steps, on the default synthetic world (24 places x 4 images)
 TRAIN_TS, TRAIN_NEG, TRAIN_ITERS = 4, 10, 3
@@ -669,10 +686,11 @@ def device_times(calls, dev, card):
     print(f"floor: empty kernel {floor:.4g} ms on the device [{card}]")
     for what, fn, entry, *key in calls:
         ms, parts = device_ms(fn)
-        if key:
+        if key:  # a yardstick: <name>_device_ms beside its <name>_ms
             entry[key[0]] = ms
+            per_call = entry[key[0].replace("device_ms", "ms")]
             print(f"device {what}: {fmt_ms(ms)} (profiler); per call "
-                  f"{entry['library_ms']:.4f} ms [{card}]")
+                  f"{per_call:.4f} ms [{card}]")
             continue
         entry["device_ms"] = ms
         raw_ms, raw_by = restate_bound(entry, floor)
@@ -911,6 +929,268 @@ def tf32_gap(model, imgs_dev, gallery, card):
             check(torch.equal(on[1], off[1]),
                   "the entry point's f32 descriptor does not depend on the "
                   "global TF32 flag (EmbedNetPCA.forward runs in f32)")
+
+
+def record_k3(fn):
+    """Run ``fn`` with ops/quant.py's int8_conv recording each call: a list
+    of (x, wq, scale, bias, kwargs, out), synchronized."""
+    from openibl_tpu_torch.ops import quant
+
+    calls, launch = [], quant.int8_conv
+
+    def recorded(x, wq, scale, bias, **kw):
+        out = launch(x, wq, scale, bias, **kw)
+        calls.append((x, wq, scale, bias, kw, out))
+        return out
+
+    quant.int8_conv = recorded
+    try:
+        with torch.inference_mode():
+            fn()
+    finally:
+        quant.int8_conv = launch
+    torch.cuda.synchronize()
+    return calls
+
+
+def hold_k3(calls, what):
+    """Each recorded K3 call against its plain version on the same inputs,
+    bit for bit. Returns the largest |difference| (0 when it holds)."""
+    from openibl_tpu_torch.ops import quant_kernel as qk
+
+    err = 0.0
+    for x, wq, scale, bias, kw, out in calls:
+        ref = qk.int8_conv_plain(x, wq, scale, bias, **kw)
+        err = max(err, float((out.double() - ref.double()).abs().max()))
+        check(out.dtype == ref.dtype and torch.equal(out, ref),
+              f"K3 == plain, bit for bit, {what}: {tuple(x.shape)} -> "
+              f"{tuple(out.shape)} {str(out.dtype)[6:]}, {kw['mode']}, "
+              f"relu={kw['relu']}")
+    return err
+
+
+def quant_phase(model, index, weights, images, rows, desc_f32, rates, dev,
+                card, seed):
+    """(i) The int8 backbone (ops/quant.py) at full width: a RetrievalService
+    with quant_backbone=True over the served gallery, calibrated on four
+    scenes() frames. K3 against its plain version, bit for bit, at the
+    eleven quantized layers' shapes at 480x640 (batch 1, the served model's
+    own activations, f32 and bf16 prefix), a second run, a ragged odd
+    extent through the masked forward and quant_from="conv1_1" (Cin = 3,
+    padded); the planted rows at top-1 (K1's and K3's counts 0 just before
+    the queries, read just after); the conv5_3 map against the f32
+    model's (the JAX package's map gates), each int8 descriptor's nearest
+    f32 one, and the VLAD and PCA descriptors' cosines (printed);
+    extraction img/s with an f32 and a bf16 prefix; the exact query p50;
+    each layer's K3 time at batch 16 beside its bound, its plain
+    version and two yardsticks (torch._int_mm on the im2col GEMM shape,
+    im2col not timed; cuDNN's bf16 convolution). Returns (K1 launches, K3
+    launches, K3's largest error, the per-layer calls for the device
+    times)."""
+    import torch.nn.functional as F
+
+    from openibl_tpu_torch.models.vgg import VGG16_LAYERS
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.ops import quant
+    from openibl_tpu_torch.ops import quant_kernel as qk
+    from openibl_tpu_torch.serving import RetrievalService
+    from openibl_tpu_torch.utils import f32_precision
+
+    rng = np.random.RandomState(seed + 9)
+    t0 = time.perf_counter()
+    service = RetrievalService(index, weights=weights, height=H, width=W,
+                               device=dev, quant_backbone=True,
+                               calib_images=scenes(rng, 4))
+    service.warmup()
+    torch.cuda.synchronize()
+    qmodel, qbase = service._model, service._model.base
+    print(f"phase quant: quant_backbone service (calibrated on 4 frames) "
+          f"built and warmed in {time.perf_counter() - t0:.2f} s over "
+          f"{service.index_size} rows; prefix {qbase.quant_from} "
+          f"{str(qbase.compute_dtype)[6:]} [{card}]")
+    check(qbase.conv4_2.wq.dtype == torch.int8,
+          "the quantized service's backbone is int8 (conv4_2.wq)")
+
+    # -- K3 against its plain version at the main path's shapes -------------
+    one = torch.from_numpy(images[:1]).to(dev)
+    first = record_k3(lambda: qbase(one))
+    n_layers = len(VGG16_LAYERS) - 2
+    check(len(first) == n_layers, f"a quantized forward launches K3 "
+                                  f"{len(first)} times (conv2_1..conv5_3)")
+    err = hold_k3(first, f"{H}x{W} batch 1, f32 prefix")
+    again = record_k3(lambda: qbase(one))
+    check(all(torch.equal(a[-1], b[-1]) for a, b in zip(first, again)),
+          "K3: a second run gives the same bits at every layer")
+    qbase.compute_dtype = torch.bfloat16
+    err = max(err, hold_k3(record_k3(lambda: qbase(one)),
+                           f"{H}x{W} batch 1, bf16 prefix"))
+    qbase.compute_dtype = torch.float32
+    ragged = np.zeros((2, H, W, 3), np.uint8)
+    ragged[0, :H - 3, :W - 9] = images[1, :H - 3, :W - 9]
+    ragged[1] = images[2]
+    valid = torch.tensor([[H - 3, W - 9], [H, W]], device=dev)
+    err = max(err, hold_k3(record_k3(lambda: qmodel.forward_masked(
+        torch.from_numpy(ragged).to(dev), valid)),
+        f"masked, extents ({H - 3}, {W - 9}) and ({H}, {W})"))
+    conv1 = quant.QuantVGG16(
+        quant.quantize_vgg16(model.base, scenes(rng, 2),
+                             quant_from="conv1_1"),
+        quant_from="conv1_1", compute_dtype=torch.float32).to(dev)
+    calls = record_k3(lambda: conv1(one))
+    check(len(calls) == n_layers + 2 and calls[0][0].shape[-1] == 3,
+          f"quant_from=conv1_1: {len(calls)} K3 launches, the first on "
+          f"Cin = 3")
+    err = max(err, hold_k3(calls, "quant_from=conv1_1"))
+    del first, again, calls, conv1
+    torch.cuda.empty_cache()
+
+    # -- the served path: planted rows, launches ----------------------------
+    nk.netvlad_fused.launches = qk.int8_conv.launches = 0  # the path starts
+    results = service.query(list(images), topk=10)
+    k1, k3 = nk.netvlad_fused.launches, qk.int8_conv.launches  # path ends
+    top1 = float(np.mean([r[0]["index"] == int(rows[j])
+                          for j, r in enumerate(results)]))
+    print(f"  quant: planted top-1 {top1} over {len(results)} queries; "
+          f"launches K1 {k1}, K3 {k3} [{card}]")
+    check(top1 == 1.0, "quant service: every planted row at top-1")
+    check(k1 > 0 and k3 == n_layers * k1,
+          f"quant service: K3 launched {k3} times, {n_layers} a forward, "
+          f"K1 {k1} times on the served path")
+    # fidelity against the f32 model on the same queries, at each level
+    imgs_dev = torch.from_numpy(images).to(dev)
+
+    def levels(m):
+        with torch.inference_mode(), f32_precision():
+            out = []
+            for s in range(0, len(images), N_IMG):
+                fmap = m.base(imgs_dev[s:s + N_IMG])[1].float()
+                vlad = m.net_vlad.descriptor(fmap)
+                out.append((fmap, vlad, m.pca_layer(vlad)))
+        return [torch.cat(t) for t in zip(*out)]
+
+    (f32_map, f32_vlad, f32_pca), (q_map, q_vlad, q_pca) = (levels(model),
+                                                            levels(qmodel))
+    check(torch.allclose(f32_pca, desc_f32, rtol=0, atol=1e-4),
+          "the f32 model's parts give the served f32 descriptors")
+    rel = float((f32_map - q_map).norm() / f32_map.norm())
+    mcos = float((f32_map * q_map).sum() / (f32_map.norm() * q_map.norm()))
+    check(rel < 0.08 and mcos > 0.995,
+          f"int8 vs f32 conv5_3 map: rel {rel:.4f} (< 0.08), cosine "
+          f"{mcos:.6f} (> 0.995), tests/test_quant.py's map gates")
+    own = (q_pca @ f32_pca.t()).argmax(dim=1).cpu()
+    check(torch.equal(own, torch.arange(len(images))),
+          "every int8 descriptor's nearest f32 descriptor is its own image's")
+    vcos, pcos = (q_vlad * f32_vlad).sum(1), (q_pca * f32_pca).sum(1)
+    print(f"  quant: int8 vs f32 descriptor cosine: VLAD 32768-d min "
+          f"{float(vcos.min()):.6f} median {float(vcos.median()):.6f}; "
+          f"served PCA 4096-d min {float(pcos.min()):.6f} median "
+          f"{float(pcos.median()):.6f} (tests/test_quant.py's 0.999 holds "
+          f"for a random NetVLAD, whose centroids outweigh the map; this "
+          f"NetVLAD is bootstrapped from conv5 clusters and its PCA centred, "
+          f"which both amplify the int8 error) [{card}]")
+
+    # -- rates --------------------------------------------------------------
+    batch = imgs_dev[:N_IMG]
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            qbase.compute_dtype = dtype
+            ms = cuda_ms(lambda: qmodel(batch), reps=10, warmup=2)
+            name = (f"descriptor_images_per_sec_per_chip_{H}x{W}_"
+                    f"{str(dtype)[6:]}_int8_bs{N_IMG}")
+            print(f"timing extraction {name}: {N_IMG / ms * 1e3:.2f} img/s "
+                  f"({ms:.3f} ms/batch; without int8 "
+                  f"{rates[dtype]:.2f} img/s) [{card}]")
+        qbase.compute_dtype = torch.float32
+    p50 = p50_query_ms(service, images)
+    print(f"timing service.query exact quant_backbone batch 1, top-10 of "
+          f"{GALLERY}: p50 {p50:.3f} ms (host clock, 25 queries) [{card}]")
+
+    # -- K3 per layer at batch 16 -------------------------------------------
+    shapes, h, w = [], H, W
+    for name, cin, cout, relu, pool in VGG16_LAYERS:
+        if name not in ("conv1_1", "conv1_2"):
+            shapes.append((name, h, w, cin, cout, relu))
+        if pool:
+            h, w = h // 2, w // 2
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    big = max(N_IMG * s[1] * s[2] * s[3] for s in shapes)
+    x_all = torch.randint(0, 128, (big,), generator=g, device=dev,
+                          dtype=torch.int8)
+    xb_all = x_all.to(torch.bfloat16)
+    a_all = torch.randint(-128, 128, (9 * big,), generator=g, device=dev,
+                          dtype=torch.int8)
+    calls = []
+    for name, h, w, cin, cout, relu in shapes:
+        layer = getattr(qbase, name)
+        scale, bias = (layer.m, layer.bq) if hasattr(layer, "m") else \
+            (layer.sxsw, layer.b)
+        kw = ({"mode": "requant", "relu": relu} if hasattr(layer, "m") else
+              {"mode": "dequant", "relu": relu})
+        m = N_IMG * h * w
+        x = x_all[:m * cin].view(N_IMG, h, w, cin)
+        wq = layer.wq
+        a = a_all[:m * 9 * cin].view(m, 9 * cin)
+        b = wq.reshape(cout, 9 * cin).t()
+        xb = xb_all[:m * cin].view(N_IMG, h, w, cin).permute(0, 3, 1, 2)
+        wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+        def launch_k3(x=x, wq=wq, scale=scale, bias=bias, kw=kw):
+            return qk.int8_conv(x, wq, scale, bias, **kw)
+
+        io = nbytes(x, wq, scale, bias) + m * cout * (
+            1 if kw["mode"] == "requant" else 4)
+        ops = 2 * m * 9 * cin * cout
+        entry = {"ms": cuda_ms(launch_k3),
+                 "plain_ms": cuda_ms(lambda: qk.int8_conv_plain(
+                     x, wq, scale, bias, **kw), reps=3, warmup=1),
+                 "int_mm_ms": cuda_ms(lambda: torch._int_mm(a, b)),
+                 "cudnn_bf16_ms": cuda_ms(lambda: F.conv2d(xb, wb,
+                                                           padding=1)),
+                 **bound(io, ops, INT8_OPS_PER_MS)}
+        what = f"K3 {name} ({N_IMG},{h},{w},{cin})->{cout}"
+        print(f"timing {what}: kernel {entry['ms']:.4f} ms, plain "
+              f"{entry['plain_ms']:.4f} ms, torch._int_mm ({m}, {9 * cin}, "
+              f"{cout}) {entry['int_mm_ms']:.4f} ms, cuDNN bf16 conv "
+              f"{entry['cudnn_bf16_ms']:.4f} ms, bound "
+              f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
+              f"{ops / 1e9:.1f} G int8 ops at 1,979 TOPS, {io / 1e6:.1f} MB "
+              f"at 3.35 TB/s) [{card}]")
+        calls += [(what, launch_k3, entry),
+                  (f"{what}, yardstick torch._int_mm",
+                   lambda a=a, b=b: torch._int_mm(a, b), entry,
+                   "int_mm_device_ms"),
+                  (f"{what}, yardstick cuDNN bf16 conv",
+                   lambda xb=xb, wb=wb: F.conv2d(xb, wb, padding=1), entry,
+                   "cudnn_bf16_device_ms")]
+    del service
+    torch.cuda.empty_cache()
+    return k1, k3, err, calls
+
+
+def k3_entry(calls):
+    """K3's kernels-line entry: the sums over one quantized forward's eleven
+    launches at batch 16 (per call, device, plain, yardsticks, bounds)."""
+    entries = [c[2] for c in calls if len(c) == 3]
+
+    def total(key):
+        vals = [e.get(key) for e in entries]
+        return None if any(v is None for v in vals) else sum(vals)
+
+    by_ops = sum(e["bound_ms"] for e in entries if e["bound_by"] ==
+                 "operations")
+    return {"ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": "operations" if by_ops >= total("bound_ms") / 2
+            else "bytes",
+            "library_ms": None, "device_ms": total("device_ms"),
+            "enqueue_ms": total("enqueue_ms"),
+            "int_mm_ms": total("int_mm_ms"),
+            "int_mm_device_ms": total("int_mm_device_ms"),
+            "cudnn_bf16_ms": total("cudnn_bf16_ms"),
+            "cudnn_bf16_device_ms": total("cudnn_bf16_device_ms"),
+            "per": f"one quantized forward at batch {N_IMG}, {H}x{W}: "
+                   f"{len(entries)} launches, summed"}
 
 
 def tuples_tie_equal(ours, theirs, qf, gf, n_q, tie=5e-3):
@@ -2013,18 +2293,26 @@ def run(dev, seed=0):
 
         # -- phase 7: timings of extraction and the exact service ------------
         batch = imgs_dev[:N_IMG]
+        rates = {}
         with torch.inference_mode():
             for dtype in (torch.float32, torch.bfloat16):
                 model.base.compute_dtype = dtype
                 ms = cuda_ms(lambda: model(batch), reps=10, warmup=2)
+                rates[dtype] = N_IMG / ms * 1e3
                 print(f"timing extraction {H}x{W} batch {N_IMG} "
-                      f"{str(dtype)[6:]}: {N_IMG / ms * 1e3:.2f} img/s "
+                      f"{str(dtype)[6:]}: {rates[dtype]:.2f} img/s "
                       f"({ms:.3f} ms/batch) [{card}]")
             model.base.compute_dtype = torch.float32
         exact_p50 = p50_query_ms(service, images)
         print(f"timing service.query batch 1, top-10 of {GALLERY}: p50 "
               f"{exact_p50:.3f} ms (host clock, 25 queries) [{card}]")
-        del service, model
+        del service
+
+        # -- phase 7b (i): the int8 backbone, served -------------------------
+        k1_quant, k3_launches, k3_err, k3_calls = quant_phase(
+            model, index, weights, images, rows, desc_k1, rates, dev, card,
+            seed)
+        del model
         torch.cuda.empty_cache()
 
         # -- phase 8 (c): the served modes of the index family ---------------
@@ -2050,17 +2338,27 @@ def run(dev, seed=0):
 
     # -- phase 10: each kernel's host enqueue time, then the launch floor
     # and each device time (after every timed phase) ------------------------
-    calls = [*k1_calls, *k2_calls, *probe_calls, *probe_k2_calls]
+    calls = [*k1_calls, *k2_calls, *probe_calls, *probe_k2_calls,
+             *k3_calls]
     enqueue_times(calls, card)
     device_times(calls, dev, card)
+    k3 = k3_entry(k3_calls)
+    print(f"K3 over one quantized forward ({k3['per']}): per call "
+          f"{k3['ms']:.4f} ms, device {fmt_ms(k3['device_ms'])}, plain "
+          f"{k3['plain_ms']:.4f} ms, torch._int_mm {k3['int_mm_ms']:.4f} ms "
+          f"(device {fmt_ms(k3['int_mm_device_ms'])}), cuDNN bf16 "
+          f"{k3['cudnn_bf16_ms']:.4f} ms (device "
+          f"{fmt_ms(k3['cudnn_bf16_device_ms'])}), bound "
+          f"{k3['bound_ms']:.4f} ms [{card}]")
 
     print(json.dumps({"kernels": [
         {"name": "netvlad_fused", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/netvlad.cu",
          "replaces": "openibl_tpu/ops/netvlad_kernel.py:74",
-         "launches": (k1_launches + train_launches + sfrs_launches
-                      + tokyo_launches + rerank_launches),
+         "launches": (k1_launches + k1_quant + train_launches
+                      + sfrs_launches + tokyo_launches + rerank_launches),
          "launches_by_path": {"serve_exact": k1_launches,
+                              "serve_exact_quant": k1_quant,
                               "train": train_launches,
                               "sfrs": sfrs_launches,
                               "tokyo_eval": tokyo_launches,
@@ -2070,6 +2368,13 @@ def run(dev, seed=0):
          "replaces": "openibl_tpu/ops/pq_kernel.py:84",
          "launches": k2_launches, **k2},
         *probes,
+        {"name": "int8_conv", "route": "cuda",
+         "source": "openibl_tpu_torch/csrc/quant_conv.cu",
+         "replaces": "openibl_tpu/ops/quant.py:203 (XLA int8 conv, no "
+                     "pallas_call)",
+         "launches": k3_launches,
+         "launches_by_path": {"serve_exact_quant": k3_launches},
+         "max_abs_err": k3_err, **k3},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

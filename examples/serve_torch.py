@@ -49,6 +49,11 @@ def main():
                         "re-ranked exactly against the full-width "
                         "descriptors (index built with --pq-m, without "
                         "--pq-only)")
+    p.add_argument("--quant-backbone", action="store_true",
+                   help="run the conv backbone mixed float/int8 "
+                        "(openibl_tpu_torch/ops/quant.py: conv2_1..conv5_3 "
+                        "through the int8 kernel K3 on CUDA), calibrated "
+                        "on random noise (a warning says so)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device for the model and the index")
     args = p.parse_args()
@@ -60,6 +65,7 @@ def main():
                                quantize_int8=args.int8,
                                ivf_nprobe=args.ivf_nprobe,
                                pca_params=args.pca_params,
+                               quant_backbone=args.quant_backbone,
                                use_pq=args.pq, pq_rerank=args.pq_rerank,
                                device=args.device)
     print(f"warming {len(service.buckets)} batch buckets over "

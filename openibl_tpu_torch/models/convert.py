@@ -17,6 +17,12 @@ Port state-dict keys: ``base.<conv>.weight/bias``, ``net_vlad.assign_w``,
 ``params_to_jax`` is the inverse of ``params_from_jax``: the checkpoint
 writer stores the port's parameters in the JAX layouts, and a round trip
 JAX → port → JAX gives the same bits (transposes and copies only).
+
+``quant_state_from_jax`` / ``quant_state_to_jax`` carry the int8 backbone's
+tree (openibl_tpu/ops/quant.py: ``wq`` HWIO int8, ``m``/``bq`` or
+``sxsw``/``b``, ``_meta.s_in``, the float prefix's ``w``/``b``) to and from
+the flat state of ``ops.quant.QuantVGG16`` (``wq`` (Cout, 3, 3, Cin), the
+prefix OIHW), with the same bits.
 """
 
 import numpy as np
@@ -169,3 +175,41 @@ def state_from_torch(state_dict):
         state["pca_layer.w"] = pw[:, :, 0, 0].t().contiguous()
         state["pca_layer.b"] = sd["pca_layer.bias"]
     return state
+
+
+def quant_state_from_jax(qtree):
+    """The JAX package's quantized VGG16 tree (``quantize_vgg16``) → the
+    flat state of ``ops.quant.QuantVGG16``."""
+    state = {}
+    for name, p in qtree.items():
+        if name == "_meta":
+            state["s_in"] = torch.tensor(np.float32(p["s_in"]))
+        elif "wq" in p:
+            state[f"{name}.wq"] = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(p["wq"], np.int8).transpose(3, 0, 1, 2)))
+            for k in ("m", "bq", "sxsw", "b"):
+                if k in p:
+                    state[f"{name}.{k}"] = _tensor(p[k])
+        else:
+            state.update(vgg16_state_from_jax({name: p}))
+    return state
+
+
+def quant_state_to_jax(state):
+    """``QuantVGG16``'s state (or ``quantize_vgg16``'s) → the JAX package's
+    quantized tree of numpy arrays; the inverse of quant_state_from_jax."""
+    tree = {}
+    for key, value in state.items():
+        if key == "s_in":
+            tree["_meta"] = {"s_in": np.float32(_array(value))}
+            continue
+        name, leaf = key.split(".")
+        arr = _array(value)
+        if leaf == "wq":
+            arr = np.ascontiguousarray(arr.transpose(1, 2, 3, 0))
+        elif leaf == "weight":
+            leaf, arr = "w", np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        elif leaf == "bias":
+            leaf = "b"
+        tree.setdefault(name, {})[leaf] = arr
+    return tree

@@ -24,6 +24,11 @@ and the global descriptor are sums of the quarters' un-normalized VLADs.
 inside ``utils.f32_precision``: an f32 model computes its convolutions and
 products in f32 (no TF32) whatever the caller's global flags, as the JAX
 package's f32 path does; bf16 backbones are unaffected.
+
+The base may also be ops/quant.py's ``QuantVGG16`` (the int8 backbone,
+``quantize_model_params``): it keeps VGG16's forward contract, so an
+unmasked batch takes K1 on its dequantized conv5_3 map and a masked one the
+eager head, as with the float base.
 """
 
 import numpy as np

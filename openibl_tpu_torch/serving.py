@@ -10,13 +10,16 @@
     IVF probing (ops/ivf.py), exhaustive PQ ADC through kernel K2, IVFADC,
     or an ADC shortlist re-ranked exactly (ops/pq.py).
 
-Mesh sharding and the int8 backbone are not ported yet; asking for one
-raises NotImplementedError naming its ROADMAP item. examples/serve_torch.py
-wraps the service in a stdlib HTTP server.
+With ``quant_backbone`` the model's VGG16 runs mixed float/int8
+(ops/quant.py: the float prefix through cuDNN, conv2_1..conv5_3 through
+kernel K3 on the card), calibrated on ``calib_images``. Mesh sharding is not
+ported yet; asking for it raises NotImplementedError naming its ROADMAP
+item. examples/serve_torch.py wraps the service in a stdlib HTTP server.
 """
 
 import os
 import threading
+import warnings
 
 import numpy as np
 import torch
@@ -27,6 +30,7 @@ from openibl_tpu_torch.hub import vgg16_netvlad
 from openibl_tpu_torch.ops.distance import quantize_index_int8, topk_nearest
 from openibl_tpu_torch.ops.ivf import ivf_search
 from openibl_tpu_torch.ops.pq import ivfpq_search, pq_search, pq_search_rerank
+from openibl_tpu_torch.ops.quant import quantize_model_params
 from openibl_tpu_torch.utils import f32_precision
 
 _BATCH_BUCKETS = (1, 4, 16)
@@ -136,9 +140,15 @@ class RetrievalService:
         rotation in the index is applied to queries.
       pq_rerank: >0 = ADC shortlist of this size over "pq_codes", re-ranked
         by exact distance against the full-width descriptors.
+      quant_backbone: run the backbone mixed float/int8 (ops/quant.py,
+        the JAX package's scheme; held to f32 in tests/test_torch_quant.py),
+        calibrated on ``calib_images``, (N, H, W, 3) uint8 or float: a few
+        representative frames. Without them the scales come from random
+        noise, with a warning: real-scene activations can exceed
+        noise-derived maxima and clip.
       device: where the model and the index live: the card by default;
         without one this raises unless ``device="cpu"``.
-      mesh, quant_backbone: not ported (ROADMAP Queue 1 items 12 and 14).
+      mesh: not ported (ROADMAP Queue 1 item 12).
     """
 
     def __init__(self, index, weights=None, height=480, width=640,
@@ -151,8 +161,6 @@ class RetrievalService:
                 index = {k: data[k] for k in data.files}
         if mesh is not None:
             _not_ported("mesh-sharded serving", 12)
-        if quant_backbone:
-            _not_ported("the int8 backbone (quant_backbone)", 14)
         self.paths = [str(p) for p in index.get("paths", [])]
         self.pq_rerank = int(pq_rerank)
         self.ivf_nprobe = int(ivf_nprobe)
@@ -193,6 +201,19 @@ class RetrievalService:
         self.buckets = tuple(sorted(batch_buckets))
         self._model = vgg16_netvlad(weights, pca_params=pca_params,
                                     device=self.device)
+        if quant_backbone:
+            if calib_images is None:
+                warnings.warn(
+                    "quant_backbone=True without calib_images: calibrating "
+                    "activation scales on random noise. Real-scene "
+                    "activations can exceed noise-derived maxima and clip; "
+                    "pass a few representative frames as calib_images for "
+                    "production indexes",
+                    stacklevel=2,
+                )
+                calib_images = np.random.RandomState(0).randint(
+                    0, 256, (4, height, width, 3), dtype=np.uint8)
+            self._model = quantize_model_params(self._model, calib_images)
 
         def put(key, dtype=None):
             return torch.from_numpy(np.asarray(index[key], dtype)).to(

@@ -123,12 +123,34 @@ def test_reduced_precision_indexes_rank_like_f32():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"mesh": object()}, "item 12"), ({"quant_backbone": True}, "item 14"),
+    ({"mesh": object()}, "item 12"),
 ])
 def test_unported_options_raise(kwargs, item):
     index = {"descriptors": np.zeros((2, 4096), np.float32)}
     with pytest.raises(NotImplementedError, match=item):
         RetrievalService(index, height=H, width=W, device="cpu", **kwargs)
+
+
+def test_quant_backbone_service():
+    """quant_backbone=True serves end to end (the counterpart of
+    tests/test_serving.py's test_quant_backbone_service): full result rows,
+    the same answer twice, and the backbone's weights really int8. Fidelity
+    against f32 and the JAX service is held in tests/test_torch_quant.py."""
+    rng = np.random.RandomState(21)
+    gallery = rng.randn(16, 4096).astype(np.float32)
+    gallery /= np.linalg.norm(gallery, axis=1, keepdims=True)
+    svc = RetrievalService({"descriptors": gallery}, height=H, width=W,
+                           batch_buckets=(1,), quant_backbone=True,
+                           calib_images=rng.randint(0, 256, (2, H, W, 3),
+                                                    np.uint8),
+                           device="cpu")
+    img = rng.randint(0, 256, (H, W, 3), np.uint8)
+    res = svc.query([img], topk=5)
+    assert len(res[0]) == 5
+    assert all(0 <= m["index"] < 16 for m in res[0])
+    again = svc.query([img], topk=5)
+    assert [m["index"] for m in res[0]] == [m["index"] for m in again[0]]
+    assert svc._model.base.conv4_2.wq.dtype == torch.int8
 
 
 def test_index_validation():

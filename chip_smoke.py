@@ -23,9 +23,13 @@ row at top-1; the conv5_3 map against the f32 model's (rel < 0.08, cosine
 > 0.995), each int8 descriptor's nearest f32 descriptor its own image's,
 and the VLAD and served descriptors' cosines against the f32 model's;
 extraction img/s with an f32 and a bf16 prefix under bench.py's ``_int8``
-names; the exact query p50; and each layer's K3 time at batch 16 beside
-its bound, its plain version, torch._int_mm on the same GEMM and cuDNN's
-bf16 convolution. Then the index family over the same gallery, built on the
+names; the exact query p50; and each layer's K3 time at batch 16 and at
+batch 1 (the served query) with its launch geometry, beside its bound, its
+plain version, torch._int_mm on the same GEMM, cuDNN's bf16 convolution
+and the time of one block a tile beside K3's persistent grid. K3's ptxas
+report and, where cuobjdump exists, its SASS counts of IGMMA, UTMALDG,
+UTMASTG and IMMA are printed and checked after the build, before any
+kernel runs. Then the index family over the same gallery, built on the
 card (PQ m=64, OPQ, IVF and IVFADC with 256 cells), and its served modes:
 a codes-only PQ index, IVFADC, the PQ re-rank and full-width IVF, each
 through a RetrievalService (PQ also through HTTP) with its Recall@1/5/10.
@@ -112,6 +116,8 @@ import io
 import json
 import os
 import os.path as osp
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -325,7 +331,30 @@ def build_kernels(card):
         print(f"  {osp.relpath(lib_path, ROOT)}: {secs:.2f} s [{card}]")
         with open(lib_path[:-3] + ".log") as f:
             print("".join(f"  ptxas: {ln}" for ln in f if "Used" in ln
-                          or "spill" in ln or "smem" in ln), end="")
+                          or "spill" in ln or "smem" in ln
+                          or "arning" in ln), end="")
+
+
+def k3_sass(card):
+    """K3's SASS, where the toolkit has cuobjdump: the counts of int8 wgmma
+    (IGMMA), TMA loads and stores (UTMALDG, UTMASTG) and mma.sync int8
+    (IMMA), checked: wgmma fed by TMA, no mma.sync."""
+    from openibl_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not osp.isfile(tool):
+        print(f"  K3 SASS: no cuobjdump on this machine [{card}]")
+        return
+    lib = _build.library_path("quant_conv", KERNELS["quant_conv"])
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    ops = {op: len(re.findall(rf"\b{op}\b", sass))
+           for op in ("IGMMA", "UTMALDG", "UTMASTG", "IMMA")}
+    print(f"  K3 SASS ({osp.basename(lib)}): " + ", ".join(
+        f"{k} {v}" for k, v in ops.items()) + f" [{card}]")
+    check(ops["IGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["IMMA"] == 0,
+          "K3 runs int8 wgmma fed by TMA (IGMMA, UTMALDG) and no mma.sync "
+          "(IMMA)")
 
 
 def gate_ratio(out, ref, rtol=RTOL, atol=ATOL):
@@ -982,11 +1011,12 @@ def quant_phase(model, index, weights, images, rows, desc_f32, rates, dev,
     model's (the JAX package's map gates), each int8 descriptor's nearest
     f32 one, and the VLAD and PCA descriptors' cosines (printed);
     extraction img/s with an f32 and a bf16 prefix; the exact query p50;
-    each layer's K3 time at batch 16 beside its bound, its plain
-    version and two yardsticks (torch._int_mm on the im2col GEMM shape,
-    im2col not timed; cuDNN's bf16 convolution). Returns (K1 launches, K3
-    launches, K3's largest error, the per-layer calls for the device
-    times)."""
+    each layer's K3 time at batch 16 and at batch 1 (the served query's
+    shape) with its geometry, beside its bound, its plain version, two
+    yardsticks (torch._int_mm on the im2col GEMM shape, im2col not timed;
+    cuDNN's bf16 convolution) and, beside K3's persistent grid, the time of
+    one block a tile. Returns (K1 launches, K3 launches, K3's largest
+    error, the per-layer calls for the device times)."""
     import torch.nn.functional as F
 
     from openibl_tpu_torch.models.vgg import VGG16_LAYERS
@@ -1105,7 +1135,7 @@ def quant_phase(model, index, weights, images, rows, desc_f32, rates, dev,
     print(f"timing service.query exact quant_backbone batch 1, top-10 of "
           f"{GALLERY}: p50 {p50:.3f} ms (host clock, 25 queries) [{card}]")
 
-    # -- K3 per layer at batch 16 -------------------------------------------
+    # -- K3 per layer at batch 16 and at batch 1 (the served query) --------
     shapes, h, w = [], H, W
     for name, cin, cout, relu, pool in VGG16_LAYERS:
         if name not in ("conv1_1", "conv1_2"):
@@ -1119,50 +1149,67 @@ def quant_phase(model, index, weights, images, rows, desc_f32, rates, dev,
     xb_all = x_all.to(torch.bfloat16)
     a_all = torch.randint(-128, 128, (9 * big,), generator=g, device=dev,
                           dtype=torch.int8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     calls = []
-    for name, h, w, cin, cout, relu in shapes:
-        layer = getattr(qbase, name)
-        scale, bias = (layer.m, layer.bq) if hasattr(layer, "m") else \
-            (layer.sxsw, layer.b)
-        kw = ({"mode": "requant", "relu": relu} if hasattr(layer, "m") else
-              {"mode": "dequant", "relu": relu})
-        m = N_IMG * h * w
-        x = x_all[:m * cin].view(N_IMG, h, w, cin)
-        wq = layer.wq
-        a = a_all[:m * 9 * cin].view(m, 9 * cin)
-        b = wq.reshape(cout, 9 * cin).t()
-        xb = xb_all[:m * cin].view(N_IMG, h, w, cin).permute(0, 3, 1, 2)
-        wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
+    for batch in (N_IMG, 1):
+        for name, h, w, cin, cout, relu in shapes:
+            layer = getattr(qbase, name)
+            scale, bias = (layer.m, layer.bq) if hasattr(layer, "m") else \
+                (layer.sxsw, layer.b)
+            kw = ({"mode": "requant", "relu": relu} if hasattr(layer, "m")
+                  else {"mode": "dequant", "relu": relu})
+            m = batch * h * w
+            x = x_all[:m * cin].view(batch, h, w, cin)
+            wq = layer.wq
+            a = a_all[:m * 9 * cin].view(m, 9 * cin)
+            b = wq.reshape(cout, 9 * cin).t()
+            xb = xb_all[:m * cin].view(batch, h, w, cin).permute(0, 3, 1, 2)
+            wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
 
-        def launch_k3(x=x, wq=wq, scale=scale, bias=bias, kw=kw):
-            return qk.int8_conv(x, wq, scale, bias, **kw)
+            def launch_k3(x=x, wq=wq, scale=scale, bias=bias, kw=kw):
+                return qk.int8_conv(x, wq, scale, bias, **kw)
 
-        io = nbytes(x, wq, scale, bias) + m * cout * (
-            1 if kw["mode"] == "requant" else 4)
-        ops = 2 * m * 9 * cin * cout
-        entry = {"ms": cuda_ms(launch_k3),
-                 "plain_ms": cuda_ms(lambda: qk.int8_conv_plain(
-                     x, wq, scale, bias, **kw), reps=3, warmup=1),
-                 "int_mm_ms": cuda_ms(lambda: torch._int_mm(a, b)),
-                 "cudnn_bf16_ms": cuda_ms(lambda: F.conv2d(xb, wb,
-                                                           padding=1)),
-                 **bound(io, ops, INT8_OPS_PER_MS)}
-        what = f"K3 {name} ({N_IMG},{h},{w},{cin})->{cout}"
-        print(f"timing {what}: kernel {entry['ms']:.4f} ms, plain "
-              f"{entry['plain_ms']:.4f} ms, torch._int_mm ({m}, {9 * cin}, "
-              f"{cout}) {entry['int_mm_ms']:.4f} ms, cuDNN bf16 conv "
-              f"{entry['cudnn_bf16_ms']:.4f} ms, bound "
-              f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
-              f"{ops / 1e9:.1f} G int8 ops at 1,979 TOPS, {io / 1e6:.1f} MB "
-              f"at 3.35 TB/s) [{card}]")
-        calls += [(what, launch_k3, entry),
-                  (f"{what}, yardstick torch._int_mm",
-                   lambda a=a, b=b: torch._int_mm(a, b), entry,
-                   "int_mm_device_ms"),
-                  (f"{what}, yardstick cuDNN bf16 conv",
-                   lambda xb=xb, wb=wb: F.conv2d(xb, wb, padding=1), entry,
-                   "cudnn_bf16_device_ms")]
+            out_nbytes = 1 if kw["mode"] == "requant" else 4
+            geo = qk.conv_geometry(batch, h, w, cin, cout, sms, out_nbytes)
+            io = nbytes(x, wq, scale, bias) + m * cout * out_nbytes
+            ops = 2 * m * 9 * cin * cout
+            entry = {"layer": name, "batch": batch,
+                     "geometry": (f"{geo.th}x{geo.tw} BN {geo.bn} BK "
+                                  f"{geo.bk}{' halo' if geo.halo else ''}"
+                                  f"{' pingpong' if geo.pingpong else ''} "
+                                  f"S {geo.stages} grid {geo.blocks}"),
+                     "ms": cuda_ms(launch_k3),
+                     "plain_ms": cuda_ms(lambda: qk.int8_conv_plain(
+                         x, wq, scale, bias, **kw), reps=3, warmup=1),
+                     "int_mm_ms": cuda_ms(lambda: torch._int_mm(a, b)),
+                     "cudnn_bf16_ms": cuda_ms(lambda: F.conv2d(
+                         xb, wb, padding=1)),
+                     **bound(io, ops, INT8_OPS_PER_MS)}
+            # one block a tile, in the same run, beside the persistent grid
+            # (at most one block an SM walking the tiles) K3 runs
+            tgeo = qk.conv_geometry(batch, h, w, cin, cout, sms, out_nbytes,
+                                    persistent=False)
+            entry["one_a_tile_ms"] = cuda_ms(
+                lambda: qk._launch(x, wq, scale, bias, kw["mode"],
+                                   kw["relu"], torch.float32, geometry=tgeo))
+            what = f"K3 {name} ({batch},{h},{w},{cin})->{cout}"
+            print(f"timing {what}: kernel {entry['ms']:.4f} ms "
+                  f"({entry['geometry']}; one block a tile, grid "
+                  f"{tgeo.blocks}: {entry['one_a_tile_ms']:.4f} ms), plain "
+                  f"{entry['plain_ms']:.4f} ms, torch._int_mm ({m}, "
+                  f"{9 * cin}, {cout}) {entry['int_mm_ms']:.4f} ms, cuDNN "
+                  f"bf16 conv {entry['cudnn_bf16_ms']:.4f} ms, bound "
+                  f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
+                  f"{ops / 1e9:.1f} G int8 ops at 1,979 TOPS, "
+                  f"{io / 1e6:.1f} MB at 3.35 TB/s) [{card}]")
+            calls += [(what, launch_k3, entry),
+                      (f"{what}, yardstick torch._int_mm",
+                       lambda a=a, b=b: torch._int_mm(a, b), entry,
+                       "int_mm_device_ms"),
+                      (f"{what}, yardstick cuDNN bf16 conv",
+                       lambda xb=xb, wb=wb: F.conv2d(xb, wb, padding=1),
+                       entry, "cudnn_bf16_device_ms")]
     del service
     torch.cuda.empty_cache()
     return k1, k3, err, calls
@@ -1170,27 +1217,35 @@ def quant_phase(model, index, weights, images, rows, desc_f32, rates, dev,
 
 def k3_entry(calls):
     """K3's kernels-line entry: the sums over one quantized forward's eleven
-    launches at batch 16 (per call, device, plain, yardsticks, bounds)."""
-    entries = [c[2] for c in calls if len(c) == 3]
+    launches at batch 16 (per call, device, plain, yardsticks, bounds), the
+    same sums at batch 1 (the served query's shape) under ``batch1``, and
+    each layer's geometry at both."""
+    def sums(batch):
+        entries = [c[2] for c in calls if len(c) == 3
+                   and c[2]["batch"] == batch]
 
-    def total(key):
-        vals = [e.get(key) for e in entries]
-        return None if any(v is None for v in vals) else sum(vals)
+        def total(key):
+            vals = [e.get(key) for e in entries]
+            return None if any(v is None for v in vals) else sum(vals)
 
-    by_ops = sum(e["bound_ms"] for e in entries if e["bound_by"] ==
-                 "operations")
-    return {"ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": "operations" if by_ops >= total("bound_ms") / 2
-            else "bytes",
-            "library_ms": None, "device_ms": total("device_ms"),
-            "enqueue_ms": total("enqueue_ms"),
-            "int_mm_ms": total("int_mm_ms"),
-            "int_mm_device_ms": total("int_mm_device_ms"),
-            "cudnn_bf16_ms": total("cudnn_bf16_ms"),
-            "cudnn_bf16_device_ms": total("cudnn_bf16_device_ms"),
-            "per": f"one quantized forward at batch {N_IMG}, {H}x{W}: "
-                   f"{len(entries)} launches, summed"}
+        by_ops = sum(e["bound_ms"] for e in entries if e["bound_by"] ==
+                     "operations")
+        return {"ms": total("ms"), "plain_ms": total("plain_ms"),
+                "bound_ms": total("bound_ms"),
+                "bound_by": "operations" if by_ops >= total("bound_ms") / 2
+                else "bytes",
+                "library_ms": None, "device_ms": total("device_ms"),
+                "enqueue_ms": total("enqueue_ms"),
+                "one_a_tile_ms": total("one_a_tile_ms"),
+                "int_mm_ms": total("int_mm_ms"),
+                "int_mm_device_ms": total("int_mm_device_ms"),
+                "cudnn_bf16_ms": total("cudnn_bf16_ms"),
+                "cudnn_bf16_device_ms": total("cudnn_bf16_device_ms"),
+                "geometry": {e["layer"]: e["geometry"] for e in entries},
+                "per": f"one quantized forward at batch {batch}, {H}x{W}: "
+                       f"{len(entries)} launches, summed"}
+
+    return {**sums(N_IMG), "batch1": sums(1)}
 
 
 def tuples_tie_equal(ours, theirs, qf, gf, n_q, tie=5e-3):
@@ -2150,6 +2205,7 @@ def run(dev, seed=0):
 
     # -- phase 1: build the kernels; phase 2: each against its plain -------
     build_kernels(card)
+    k3_sass(card)
     k1, k1_calls = check_k1(dev, card, seed)
     k2, k2_calls = check_k2(dev, card, seed)
     probes, probe_calls = check_probes(dev, card)
@@ -2343,13 +2399,16 @@ def run(dev, seed=0):
     enqueue_times(calls, card)
     device_times(calls, dev, card)
     k3 = k3_entry(k3_calls)
-    print(f"K3 over one quantized forward ({k3['per']}): per call "
-          f"{k3['ms']:.4f} ms, device {fmt_ms(k3['device_ms'])}, plain "
-          f"{k3['plain_ms']:.4f} ms, torch._int_mm {k3['int_mm_ms']:.4f} ms "
-          f"(device {fmt_ms(k3['int_mm_device_ms'])}), cuDNN bf16 "
-          f"{k3['cudnn_bf16_ms']:.4f} ms (device "
-          f"{fmt_ms(k3['cudnn_bf16_device_ms'])}), bound "
-          f"{k3['bound_ms']:.4f} ms [{card}]")
+    for e in (k3, k3["batch1"]):
+        print(f"K3 over one quantized forward ({e['per']}): per call "
+              f"{e['ms']:.4f} ms (one block a tile "
+              f"{e['one_a_tile_ms']:.4f} ms), device "
+              f"{fmt_ms(e['device_ms'])}, plain "
+              f"{e['plain_ms']:.4f} ms, torch._int_mm {e['int_mm_ms']:.4f} "
+              f"ms (device {fmt_ms(e['int_mm_device_ms'])}), cuDNN bf16 "
+              f"{e['cudnn_bf16_ms']:.4f} ms (device "
+              f"{fmt_ms(e['cudnn_bf16_device_ms'])}), bound "
+              f"{e['bound_ms']:.4f} ms [{card}]")
 
     print(json.dumps({"kernels": [
         {"name": "netvlad_fused", "route": "cuda",

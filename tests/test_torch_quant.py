@@ -501,17 +501,130 @@ def test_cpu_launches_nothing_and_refusals():
                    torch.float32)
     with pytest.raises(ValueError, match="int8"):
         qk._launch(x.float(), wq, v, v, "requant", True, torch.float32)
+    # a geometry that does not cover the shape, or whose shared memory is
+    # not the one it takes
+    geo = qk.conv_geometry(1, 4, 4, 32, 64, 132)
+    with pytest.raises(ValueError, match="do not cover"):
+        qk._launch(x, wq, v, v, "requant", True, torch.float32,
+                   geometry=geo._replace(tiles_y=geo.tiles_y - 1))
+    with pytest.raises(ValueError, match="do not cover"):
+        qk._launch(x, wq, v, v, "requant", True, torch.float32,
+                   geometry=geo._replace(tiles_x=geo.tiles_x + 1))
+    with pytest.raises(ValueError, match="smem_bytes"):
+        qk._launch(x, wq, v, v, "requant", True, torch.float32,
+                   geometry=geo._replace(smem_bytes=geo.smem_bytes + 16))
+    with pytest.raises(ValueError, match="blocks"):
+        qk._launch(x, wq, v, v, "requant", True, torch.float32,
+                   geometry=geo._replace(blocks=geo.blocks + 1))
+
+
+def _source():
+    with open(osp.join(ROOT, "openibl_tpu_torch", "csrc",
+                       "quant_conv.cu")) as f:
+        return f.read()
 
 
 @pytest.mark.parametrize("name, value", [
-    ("kBK", qk.CIN_ALIGN), ("kMaxCin", qk.MAX_CIN)])
+    ("kMinCin", qk.CIN_ALIGN), ("kMaxCin", qk.MAX_CIN),
+    ("kMinStages", qk.MIN_STAGES), ("kMaxStages", qk.MAX_STAGES),
+    ("kMaxSmem", qk.SMEM_BYTES),
+    ("kSmemAlign", qk.SMEM_ALIGN), ("kBarBytes", qk.BARRIER_BYTES),
+    ("kScaleBytes", qk.SCALE_BYTES), ("kHaloW", qk.HALO_W),
+    ("kHaloSlots", qk.HALO_SLOTS)])
 def test_constants_match_the_source(name, value):
-    with open(osp.join(ROOT, "openibl_tpu_torch", "csrc",
-                       "quant_conv.cu")) as f:
-        src = f.read()
+    src = _source()
     assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) == \
         str(value)
     assert f"cout % {qk.COUT_ALIGN} != 0" in src
+
+
+@pytest.mark.parametrize("what, line", [
+    ("BK", "one_of(bk, {}, {}, {})".format(*sorted(qk.BLOCK_K))),
+    ("BN", "one_of(bn, {}, {}, {})".format(*sorted(qk.BLOCK_N))),
+    ("stage bytes", "kSmemAlign + halo * kHaloSlots * halo_slot_bytes(th, "
+                    "bk) + stages * ((1 - halo) * th * tw + bn) * bk + (1 + "
+                    "pp) * (th * tw * bn * out_bytes(mode) + bn * "
+                    "kScaleBytes) + (stages + halo * kHaloSlots) * "
+                    "kBarBytes"),
+    ("pingpong", "(pp && (rows != 128 || bn > 128))"),
+    ("halo slot", "(kHaloW * (th + 2) * bk + kSmemAlign - 1) / kSmemAlign * "
+                  "kSmemAlign"),
+    ("halo mode", "(halo && (tw != 8 || bk != 128))")])
+def test_geometry_rules_match_the_source(what, line):
+    """The C entry's BK and BN choices, its halo-mode rule and its
+    shared-memory formula are the ones conv_geometry / conv_smem_bytes /
+    check_geometry use."""
+    assert line in " ".join(_source().split()), what
+
+
+# the fewest padded pixels any tile of qk.TILES leaves on each layer's map
+# of a 480x640 and a 32x48 input, counted by hand: 60x80 pads to 64x80
+# (8x16 or 16x8), 30x40 to 32x40 (16x8), 8x12 to 8x16, 4x6 and 2x3 to one
+# 64-pixel tile; the rest tile exactly
+HAND_WASTE = {(480, 640): 0, (240, 320): 0, (120, 160): 0, (60, 80): 320,
+              (30, 40): 80, (32, 48): 0, (16, 24): 0, (8, 12): 32,
+              (4, 6): 40, (2, 3): 58}
+
+
+def _layer_maps(h, w):
+    """(name, h, w, Cin padded, Cout, output bytes) of every K3 launch of a
+    quant_from="conv1_1" forward (conv1_1 and conv2_1..conv5_3)."""
+    out = []
+    for name, cin, cout, _, pool in VGG16_LAYERS:
+        if name != "conv1_2":
+            out.append((name, h, w, -(-cin // qk.CIN_ALIGN) * qk.CIN_ALIGN,
+                        cout, 4 if name == "conv5_3" else 1))
+        if pool:
+            h, w = h // 2, w // 2
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 16])
+@pytest.mark.parametrize("hw", [(480, 640), (32, 48)])
+def test_conv_geometry_covers_each_layer(hw, n):
+    """At every layer's map: the tile covers the map (no empty tile row or
+    column), with the least waste any tile could give; the shared memory
+    fits 227 KB and is the source's formula; the grid is at most one block
+    an SM (the C entry's one block a tile when not persistent); halo mode
+    only where it applies; the C entry's checks pass."""
+    for name, h, w, cin, cout, nb in _layer_maps(*hw):
+        geo = qk.conv_geometry(n, h, w, cin, cout, 132, nb)
+        assert geo.tiles_y * geo.th >= h > (geo.tiles_y - 1) * geo.th, name
+        assert geo.tiles_x * geo.tw >= w > (geo.tiles_x - 1) * geo.tw, name
+        pad = geo.tiles_y * geo.th * geo.tiles_x * geo.tw - h * w
+        assert pad == HAND_WASTE[h, w], (name, geo)
+        assert geo.smem_bytes <= 227 * 1024
+        assert geo.smem_bytes == qk.conv_smem_bytes(
+            geo.th, geo.tw, geo.bn, geo.bk, geo.halo, geo.pingpong,
+            geo.stages, nb)
+        assert geo.bk == min(cin, 128) and cout % geo.bn == 0
+        assert not geo.halo or (geo.tw == 8 and geo.bk == 128)
+        assert not geo.pingpong or (geo.th * geo.tw == 128
+                                    and geo.bn <= 128)
+        tiles = n * geo.tiles_y * geo.tiles_x * (cout // geo.bn)
+        assert geo.blocks == min(tiles, 132)
+        qk.check_geometry(geo, n, h, w, cin, cout, nb)
+        one_a_tile = qk.conv_geometry(n, h, w, cin, cout, 132, nb,
+                                      persistent=False)
+        assert one_a_tile == geo._replace(blocks=tiles)
+        qk.check_geometry(one_a_tile, n, h, w, cin, cout, nb)
+
+
+def test_conv_geometry_fills_a_small_grid():
+    """The served query's conv5 map (batch 1, 30x40, Cout 512): more
+    blocks than tiles of the widest BN would give, so that more SMs work."""
+    one = qk.conv_geometry(1, 30, 40, 512, 512, 132)
+    assert one.bn < 256 or one.th * one.tw == 64
+    assert one.blocks > 512 // 256 * -(-30 // 16) * -(-40 // 8)
+
+
+def test_conv_geometry_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="cin"):
+        qk.conv_geometry(1, 8, 8, 48, 64, 132)
+    with pytest.raises(ValueError, match="cout"):
+        qk.conv_geometry(1, 8, 8, 32, 96, 132)
+    with pytest.raises(ValueError, match="empty"):
+        qk.conv_geometry(1, 0, 8, 32, 64, 132)
 
 
 def test_modules_import_without_jax():
@@ -645,19 +758,23 @@ def _layer_inputs(gen, dev, n, h, w, cin, cout):
     return x, wq, scale, bias
 
 
+_MODE_CASES = [("requant", False, torch.int8),
+               ("dequant", False, torch.float32),
+               ("dequant", True, torch.bfloat16)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layer", [*QUANT_LAYERS, ("conv1_1", 3, 64, True,
                                                    False)],
                          ids=lambda l: f"{l[0]}-{l[1]}")
-@pytest.mark.parametrize("hw", [(12, 20), (7, 13)])
-def test_cuda_kernel_is_bit_equal_to_plain(layer, hw, cuda_device):
+@pytest.mark.parametrize("hw", [(12, 20), (7, 13), (30, 40), (60, 80),
+                                (17, 129)])
+@pytest.mark.parametrize("n", [1, 2])
+def test_cuda_kernel_is_bit_equal_to_plain(layer, hw, n, cuda_device):
     name, cin, cout, relu, _ = layer
     g = torch.Generator(device=cuda_device).manual_seed(cin * 7 + cout)
-    x, wq, scale, bias = _layer_inputs(g, cuda_device, 2, *hw, cin, cout)
-    cases = [("requant", relu, torch.int8), ("requant", False, torch.int8),
-             ("dequant", False, torch.float32),
-             ("dequant", True, torch.bfloat16)]
-    for mode, r, dt in cases:
+    x, wq, scale, bias = _layer_inputs(g, cuda_device, n, *hw, cin, cout)
+    for mode, r, dt in [("requant", relu, torch.int8), *_MODE_CASES]:
         kw = dict(mode=mode, relu=r, out_dtype=dt)
         out = qk.int8_conv(x, wq, scale, bias, **kw)
         again = qk.int8_conv(x, wq, scale, bias, **kw)
@@ -666,6 +783,55 @@ def test_cuda_kernel_is_bit_equal_to_plain(layer, hw, cuda_device):
         assert out.dtype == ref.dtype and out.shape == ref.shape
         assert torch.equal(out, ref), (name, mode, r, dt)
         assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", qk.TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("bn", qk.BLOCK_N)
+@pytest.mark.parametrize("bk", qk.BLOCK_K)
+def test_cuda_kernel_forced_geometries(tile, bn, bk, cuda_device):
+    """Each tile, BN and BK the chooser can return, forced, in tap mode and
+    (TW 8, BK 128) halo mode, with and without pingpong (128 pixels, BN
+    128 or 64), at a ragged map (Cin 128 takes every BK, Cout 256 every
+    BN), one block a tile and a persistent grid of 5 blocks (several tiles
+    a block, both pingpong warpgroups), in every output mode: bit for bit.
+    A geometry whose shared memory does not fit (BN 256, 128 pixels, f32
+    out) is refused."""
+    th, tw = tile
+    n, h, w, cin, cout = 2, 19, 37, 128, 256
+    g = torch.Generator(device=cuda_device).manual_seed(th * 1000 + bn + bk)
+    x, wq, scale, bias = _layer_inputs(g, cuda_device, n, h, w, cin, cout)
+    ty, tx = -(-h // th), -(-w // tw)
+    tiles = n * ty * tx * (cout // bn)
+    halos = (0, 1) if tw == 8 and bk == 128 else (0,)
+    pps = (0, 1) if th * tw == 128 and bn <= 128 else (0,)
+    for mode, r, dt in _MODE_CASES:
+        nb = qk.out_bytes(mode, dt)
+        ref = qk.int8_conv_plain(x, wq, scale, bias, mode=mode, relu=r,
+                                 out_dtype=dt)
+        for halo, pp in [(a, b) for a in halos for b in pps]:
+            stages = qk.conv_stages(th, tw, bn, bk, halo, pp, nb)
+            if stages is None:
+                least = qk.MIN_STAGES
+                geo = qk.ConvGeometry(th, tw, ty, tx, bn, bk, halo, pp,
+                                      least, tiles, qk.conv_smem_bytes(
+                                          th, tw, bn, bk, halo, pp, least,
+                                          nb))
+                with pytest.raises(ValueError, match="smem_bytes"):
+                    qk._launch(x, wq, scale, bias, mode, r, dt,
+                               geometry=geo)
+                continue
+            for blocks in (tiles, 5):
+                geo = qk.ConvGeometry(th, tw, ty, tx, bn, bk, halo, pp,
+                                      stages, blocks, qk.conv_smem_bytes(
+                                          th, tw, bn, bk, halo, pp, stages,
+                                          nb))
+                before = qk.int8_conv.launches
+                out = qk._launch(x, wq, scale, bias, mode, r, dt,
+                                 geometry=geo)
+                torch.cuda.synchronize()
+                assert qk.int8_conv.launches == before + 1
+                assert torch.equal(out, ref), (geo, mode, dt)
 
 
 @pytest.mark.cuda

@@ -70,6 +70,20 @@ engine against the native one, the losses, the frozen layers after each
 generation and one gen-1 step on the card against the CPU, and prints the
 gen-1 step's tuples/s, run_sfrs_training's phases and which Jaccard
 engine mining used.
+Then on-device ColorJitter (ops/augment.py) on that world: a tuple batch
+of 1 + 1 + 10 images jittered on the card against the CPU with the same
+draws (atol 1e-3 on the 0..255 scale), zero ranges bit for bit, one
+device_jitter=True train step and one SFRS gen-1 step (cuDNN off; with
+it, printed against the card's f64 step) on the card against the same
+steps on the CPU at the training phases' gate, and the jitter pass's time
+and share of the jittered step.
+Then the mesh (parallel/mesh.py): a one-rank torchrun environment on a
+free localhost port, maybe_init_distributed and get_mesh (NCCL), sharded
+extraction through K1 and the sharded kNN over the 100k gallery against
+the unsharded ones, run_eval(mesh=) on the Tokyo root against run_eval,
+the all-gather's and the sharded kNN's times; the group destroyed, then
+two ranks spawned on the one card through gloo over CUDA tensors, their
+sharded extraction and kNN held to the single-process results.
 Beside the served path it measures what cuDNN's TF32 (on as
 PyTorch ships it) does to an f32 descriptor at 480x640 and to the top-10
 over the 100k gallery, through the model's parts and through the entry
@@ -82,7 +96,8 @@ netvlad_init_from_clusters, as a trainer initializes it), and the PCA
 layer's bias centres the VLADs on their mean over the bootstrap images, as
 a PCA fit does, because the raw random init maps every image to nearly the
 same descriptor. Each served
-path, the training run, the SFRS run and the two Tokyo eval runs run with
+path, the training run, the SFRS run, the two Tokyo eval runs and the
+mesh's sharded extraction, sharded eval and two-rank run run with
 the kernels' launch counts set to 0 just before and read just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
 the same bits on a second run, and against its split-precision arithmetic
 run in plain PyTorch; K2 also at 3 and 17 queries. Prints timing
@@ -167,6 +182,8 @@ TOKYO_QUERY_SIZES = (
     (743, 997), (1024, 768), (768, 1024), (1200, 900), (900, 1200),
     (1100, 825), (1333, 1000), (1023, 767), (600, 800), (1280, 960),
     (1281, 721))
+# card vs CPU ColorJitter, f32 on the 0..255 scale (about 65 ulps at 255)
+JITTER_ATOL = 1e-3
 CARD = ""  # the card's name and power limit, set by run()
 
 
@@ -1325,8 +1342,8 @@ def train_phase(dev, card, seed, tmp):
     losses = []
     step = Trainer.step
 
-    def counted_step(self, images):
-        losses.append(step(self, images))
+    def counted_step(self, images, generator=None):
+        losses.append(step(self, images, generator))
         return losses[-1]
 
     timer = PhaseTimer(dev)
@@ -1525,6 +1542,41 @@ def sfrs_tuples_tie_equal(ours, theirs, qf, gf, jac, n_q, neg_num,
     return swaps
 
 
+def step_gap(ours, theirs, before):
+    """Two runs of one train step, each (losses, {name: parameter as f64 on
+    the CPU}), from the parameters ``before``: (the losses' largest
+    relative gap, (updates at x of rtol 1e-3 of each layer's largest,
+    where), (parameters at x of rtol 1e-3 / atol 1e-7, where), whether
+    the parameters lie within rtol 1e-3 / atol 1e-3 of the layer's
+    largest update and the untouched ones are bit-equal)."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ours[0], theirs[0]))
+    up_err = par_err = (0.0, None)
+    close = True
+    for k, old in before.items():
+        old = old.cpu().double()
+        a, b = ours[1][k], theirs[1][k]
+        if torch.equal(b, old):
+            close = close and torch.equal(a, old)
+            continue
+        ulp = float(np.spacing(np.float32(old.abs().max())))
+        up_a, up_b = a - old, b - old
+        scale = 1e-3 * float(up_b.abs().max()) + ulp
+        close = close and torch.allclose(a, b, rtol=1e-3, atol=scale)
+        err = float(((up_a - up_b).abs() / (
+            scale + 1e-3 * up_b.abs())).max())
+        up_err = max(up_err, (err, k), key=lambda e: e[0])
+        err = float(((a - b).abs() / (1e-7 + 1e-3 * b.abs())).max())
+        par_err = max(par_err, (err, k), key=lambda e: e[0])
+    return rel, up_err, par_err, close
+
+
+def gap_text(gap):
+    rel, up_err, par_err, _ = gap
+    return (f"losses rel {rel:.2g}, updates at {up_err[0]:.3g} of rtol "
+            f"1e-3 of each layer's largest ({up_err[1]}), parameters at "
+            f"{par_err[0]:.3g} of rtol 1e-3 / atol 1e-7 ({par_err[1]})")
+
+
 def sfrs_phase(dev, card, seed, tmp):
     """(f2) SFRS training at full width on the card, on the training phase's
     synthetic world (480x640) and centroid cache under ``tmp``: the
@@ -1581,8 +1633,8 @@ def sfrs_phase(dev, card, seed, tmp):
     steps, engines = [], []
     step, query = SFRSTrainer.step, rerank.JaccardEngine.query
 
-    def counted_step(self, teacher, images, gen):
-        steps.append((gen, *step(self, teacher, images, gen)))
+    def counted_step(self, teacher, images, gen, generator=None):
+        steps.append((gen, *step(self, teacher, images, gen, generator)))
         return steps[-1][1:]
 
     def seen_query(self, *a, **kw):
@@ -1764,38 +1816,7 @@ def sfrs_phase(dev, card, seed, tmp):
           f"the card without cuDNN, the card in f64): "
           f"{time.perf_counter() - t0:.2f} s [{card}]")
 
-    def step_gap(ours, theirs):
-        """(loss rel gap, (updates at x of rtol 1e-3 of each layer's
-        largest, where), (parameters at x of rtol 1e-3 / atol 1e-7, where),
-        parameters within rtol 1e-3 / atol 1e-3 of the layer's largest
-        update)"""
-        rel = max(abs(a - b) / abs(b) for a, b in zip(ours[0], theirs[0]))
-        up_err = par_err = (0.0, None)
-        close = True
-        for k, old in before.items():
-            old = old.cpu().double()
-            a, b = ours[1][k], theirs[1][k]
-            if torch.equal(b, old):
-                close = close and torch.equal(a, old)
-                continue
-            ulp = float(np.spacing(np.float32(old.abs().max())))
-            up_a, up_b = a - old, b - old
-            scale = 1e-3 * float(up_b.abs().max()) + ulp
-            close = close and torch.allclose(a, b, rtol=1e-3, atol=scale)
-            err = float(((up_a - up_b).abs() / (
-                scale + 1e-3 * up_b.abs())).max())
-            up_err = max(up_err, (err, k), key=lambda e: e[0])
-            err = float(((a - b).abs() / (1e-7 + 1e-3 * b.abs())).max())
-            par_err = max(par_err, (err, k), key=lambda e: e[0])
-        return rel, up_err, par_err, close
-
-    def gap_text(gap):
-        rel, up_err, par_err, _ = gap
-        return (f"losses rel {rel:.2g}, updates at {up_err[0]:.3g} of rtol "
-                f"1e-3 of each layer's largest ({up_err[1]}), parameters at "
-                f"{par_err[0]:.3g} of rtol 1e-3 / atol 1e-7 ({par_err[1]})")
-
-    vs_cpu = step_gap(runs["card"], runs["cpu"])
+    vs_cpu = step_gap(runs["card"], runs["cpu"], before)
     check(vs_cpu[0] < 1e-4 and vs_cpu[1][0] <= 1.0 and vs_cpu[3],
           f"one SFRS gen-1 step on the card (f32, TF32 off) == on the CPU: "
           f"hard/soft losses {runs['card'][0]} vs {runs['cpu'][0]}; "
@@ -1803,7 +1824,8 @@ def sfrs_phase(dev, card, seed, tmp):
           f"within rtol 1e-3 / atol 1e-3 of the layer's largest update)")
     print(f"  the f32 steps against the card's f64 step "
           f"{runs['card_f64'][0]}: " + "; ".join(
-              f"{name}: {gap_text(step_gap(runs[name], runs['card_f64']))}"
+              f"{name}: "
+              f"{gap_text(step_gap(runs[name], runs['card_f64'], before))}"
               for name in ("card", "cpu", "card_no_cudnn")) + f" [{card}]")
 
     # the gen-1 step's rate: 1 tuple of 1 + 1 + 10 + 10 images a step (one
@@ -1926,9 +1948,10 @@ def recalls_tie_equal(a, b, q, g, gt, pids, tie=1e-4, topk=(1, 5, 10),
     return bool(np.array_equal(a, b)) or ties > 0, ties
 
 
-def tokyo_phase(eval_tree, dev, card, seed):
+def tokyo_phase(eval_tree, dev, card, seed, tmp):
     """(h) Checkpoint evaluation at full width on the card, Tokyo 24/7: a
-    mini Tokyo root (tokyo_world), the serving model's EmbedNet (VGG16,
+    mini Tokyo root (tokyo_world, under ``tmp``, where the mesh phase reads
+    it too), the serving model's EmbedNet (VGG16,
     K=64, its bootstrapped NetVLAD) saved as a JAX-layout .npz checkpoint,
     and engine/pipeline.run_eval with NMS and a PCA fitted on demand on the
     TokyoTM train images, on the default device. K1's count is 0 just
@@ -1957,219 +1980,662 @@ def tokyo_phase(eval_tree, dev, card, seed):
     from openibl_tpu_torch.utils.checkpoint import save_checkpoint
     from openibl_tpu_torch.utils.profiling import PhaseTimer
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        rng = np.random.RandomState(seed + 4)
-        n_files = tokyo_world(osp.join(tmp, "data", "tokyo", "raw"), rng)
-        ckpt = save_checkpoint(osp.join(tmp, "logs", "model_best.npz"),
-                               {"params": eval_tree}, {"epoch": 0})
-        print(f"phase tokyo: mini Tokyo 24/7 root, {n_files} images, and a "
-              f"JAX-layout checkpoint in {time.perf_counter() - t0:.2f} s "
-              f"(host) [{card}]")
-        cfg = EvalConfig(
-            data=DataConfig(dataset="tokyo", data_dir=osp.join(tmp, "data"),
-                            height=H, width=W, test_batch_size=N_IMG),
-            checkpoint=ckpt, nms=True, reduction=True, pca_dataset="tokyo",
-            pca_dim=TOKYO_PCA_DIM)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 4)
+    n_files = tokyo_world(osp.join(tmp, "data", "tokyo", "raw"), rng)
+    ckpt = save_checkpoint(osp.join(tmp, "logs", "model_best.npz"),
+                           {"params": eval_tree}, {"epoch": 0})
+    print(f"phase tokyo: mini Tokyo 24/7 root, {n_files} images, and a "
+          f"JAX-layout checkpoint in {time.perf_counter() - t0:.2f} s "
+          f"(host) [{card}]")
+    cfg = EvalConfig(
+        data=DataConfig(dataset="tokyo", data_dir=osp.join(tmp, "data"),
+                        height=H, width=W, test_batch_size=N_IMG),
+        checkpoint=ckpt, nms=True, reduction=True, pca_dataset="tokyo",
+        pca_dim=TOKYO_PCA_DIM)
 
-        passes = []
-        extract = Evaluator.extract
+    passes = []
+    extract = Evaluator.extract
 
-        def counted_extract(self, loader, *a, **kw):
-            before = nk.netvlad_fused.launches
-            out = extract(self, loader, *a, **kw)
-            passes.append((type(loader).__name__,
-                           nk.netvlad_fused.launches - before, out))
-            return out
+    def counted_extract(self, loader, *a, **kw):
+        before = nk.netvlad_fused.launches
+        out = extract(self, loader, *a, **kw)
+        passes.append((type(loader).__name__,
+                       nk.netvlad_fused.launches - before, out))
+        return out
 
-        timer = PhaseTimer(dev)
-        Evaluator.extract = counted_extract
-        t0 = time.perf_counter()
-        try:
-            nk.netvlad_fused.launches = 0  # the Tokyo eval path starts
-            recalls = pipeline.run_eval(cfg, verbose=False, timer=timer)
-            launches = nk.netvlad_fused.launches  # the Tokyo eval path ends
-        finally:
-            Evaluator.extract = extract
-        wall = time.perf_counter() - t0
-        print(f"phase tokyo: run_eval (tokyo, NMS, PCA {TOKYO_PCA_DIM} "
-              f"fitted on demand) in {wall:.2f} s; Recall@1/5/10 "
-              f"{list(map(float, recalls))}; K1 launches {launches} "
-              f"[{card}]")
-        print("  " + timer.summary().replace("\n", "\n  ") + f" [{card}]")
-        check([(kind, n > 0) for kind, n, _ in passes]
-              == [("PaddedBatchLoader", False), ("BatchLoader", True)],
-              f"K1 launched {launches} times on the Tokyo eval path: "
-              f"{', '.join(f'{k} pass {n}' for k, n, _ in passes)} "
-              f"(the masked query pass takes the eager head), the rest on "
-              f"the PCA fit")
+    timer = PhaseTimer(dev)
+    Evaluator.extract = counted_extract
+    t0 = time.perf_counter()
+    try:
+        nk.netvlad_fused.launches = 0  # the Tokyo eval path starts
+        recalls = pipeline.run_eval(cfg, verbose=False, timer=timer)
+        launches = nk.netvlad_fused.launches  # the Tokyo eval path ends
+    finally:
+        Evaluator.extract = extract
+    wall = time.perf_counter() - t0
+    print(f"phase tokyo: run_eval (tokyo, NMS, PCA {TOKYO_PCA_DIM} "
+          f"fitted on demand) in {wall:.2f} s; Recall@1/5/10 "
+          f"{list(map(float, recalls))}; K1 launches {launches} "
+          f"[{card}]")
+    print("  " + timer.summary().replace("\n", "\n  ") + f" [{card}]")
+    check([(kind, n > 0) for kind, n, _ in passes]
+          == [("PaddedBatchLoader", False), ("BatchLoader", True)],
+          f"K1 launched {launches} times on the Tokyo eval path: "
+          f"{', '.join(f'{k} pass {n}' for k, n, _ in passes)} "
+          f"(the masked query pass takes the eager head), the rest on "
+          f"the PCA fit")
 
-        # the evaluated model, rebuilt from the checkpoint as run_eval does
-        dataset = pipeline.load_dataset(cfg)
-        model = pipeline.new_embednet(cfg)
-        pipeline._load_eval_weights(model, ckpt)
-        cpu_model = copy.deepcopy(model).eval()
-        model = model.to(dev, memory_format=torch.channels_last).eval()
-        emodel = pipeline.eval_view(model)
-        q_src = ImageSource(dataset.q_test, dataset.images_dir,
-                            TestTransform(H, W, tokyo=True,
-                                          device_normalize=True))
-        n_q = len(q_src)
-        fwd = make_extract_fn(emodel)
-        with torch.inference_mode():
-            loader = PaddedBatchLoader(q_src, batch_size=N_IMG)
-            masked = extract_features(emodel, loader,
-                                      masked_apply_fn=emodel.forward_masked,
-                                      device_output=True)
-            per_shape = [torch.tensor(q_src.load(i)[None]).to(dev)
-                         for i in range(n_q)]
-            ps = torch.cat([fwd(x) for x in per_shape])
-        torch.cuda.synchronize()
-        gap = float((masked - ps).abs().max())
-        torch.testing.assert_close(masked, ps, rtol=RTOL, atol=ATOL)
-        check(True, f"{n_q} Tokyo queries: masked bucket-padded descriptor "
-                    f"(32768-d) == own per-shape batch-1 forward (K1) on the "
-                    f"card, max |gap| {gap:.3g} ({gate_ratio(masked, ps):.4f}"
-                    f" of the rtol {RTOL} / atol {ATOL} gate)")
-        buckets = list(loader)
-        cpu_fwd = make_extract_fn(cpu_model)
-        for images, hws, idx, count in buckets:
-            i = int(idx[0])
-            with torch.no_grad():
-                ref = cpu_fwd(torch.tensor(q_src.load(i)[None]))
-            got = masked[i:i + 1].cpu()
-            torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
-            check(True, f"query {i} ({hws[0][0]}x{hws[0][1]} in the "
-                        f"{images.shape[1]}x{images.shape[2]} bucket): card "
-                        f"masked == CPU plain path at its own shape, max "
-                        f"|gap| {float((got - ref).abs().max()):.3g} "
-                        f"({gate_ratio(got, ref):.4f} of the gate)")
-
-        # K1 on a gallery batch against the plain head
-        g_src = ImageSource(dataset.db_test, dataset.images_dir,
-                            TestTransform(H, W, device_normalize=True))
-        gb = torch.from_numpy(np.stack(
-            [g_src.load(i) for i in range(N_IMG)])).to(dev)
-        nv = model.net_vlad
-        with torch.inference_mode(), f32_precision():
-            fmap = model.base(gb)[1]
-            got = nk.netvlad_fused(fmap, nv.assign_w, nv.centroids,
-                                   postprocess=True)
-            ref = nk.netvlad_plain(fmap, nv.assign_w, nv.centroids,
-                                   postprocess=True)
-        torch.cuda.synchronize()
+    # the evaluated model, rebuilt from the checkpoint as run_eval does
+    dataset = pipeline.load_dataset(cfg)
+    model = pipeline.new_embednet(cfg)
+    pipeline._load_eval_weights(model, ckpt)
+    cpu_model = copy.deepcopy(model).eval()
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    emodel = pipeline.eval_view(model)
+    q_src = ImageSource(dataset.q_test, dataset.images_dir,
+                        TestTransform(H, W, tokyo=True,
+                                      device_normalize=True))
+    n_q = len(q_src)
+    fwd = make_extract_fn(emodel)
+    with torch.inference_mode():
+        loader = PaddedBatchLoader(q_src, batch_size=N_IMG)
+        masked = extract_features(emodel, loader,
+                                  masked_apply_fn=emodel.forward_masked,
+                                  device_output=True)
+        per_shape = [torch.tensor(q_src.load(i)[None]).to(dev)
+                     for i in range(n_q)]
+        ps = torch.cat([fwd(x) for x in per_shape])
+    torch.cuda.synchronize()
+    gap = float((masked - ps).abs().max())
+    torch.testing.assert_close(masked, ps, rtol=RTOL, atol=ATOL)
+    check(True, f"{n_q} Tokyo queries: masked bucket-padded descriptor "
+                f"(32768-d) == own per-shape batch-1 forward (K1) on the "
+                f"card, max |gap| {gap:.3g} ({gate_ratio(masked, ps):.4f}"
+                f" of the rtol {RTOL} / atol {ATOL} gate)")
+    buckets = list(loader)
+    cpu_fwd = make_extract_fn(cpu_model)
+    for images, hws, idx, count in buckets:
+        i = int(idx[0])
+        with torch.no_grad():
+            ref = cpu_fwd(torch.tensor(q_src.load(i)[None]))
+        got = masked[i:i + 1].cpu()
         torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
-        check(True, f"K1 == plain head on a Tokyo gallery batch "
-                    f"{tuple(fmap.shape)}, max_abs_err "
-                    f"{float((got - ref).abs().max()):.3g} "
+        check(True, f"query {i} ({hws[0][0]}x{hws[0][1]} in the "
+                    f"{images.shape[1]}x{images.shape[2]} bucket): card "
+                    f"masked == CPU plain path at its own shape, max "
+                    f"|gap| {float((got - ref).abs().max()):.3g} "
                     f"({gate_ratio(got, ref):.4f} of the gate)")
 
-        # run_eval's recalls against the per-shape descriptors' (through
-        # the PCA run_eval fitted and the gallery it extracted)
-        pca = PCA(TOKYO_PCA_DIM, params_path=array_file(osp.join(
-            tmp, "logs", "pca_params_model_best.h5")))
-        q_red, g_red = pca.infer(ps), passes[1][2]
-        pids = [it[1] for it in dataset.db_test]
-        want = evaluate_descriptors(q_red, g_red, dataset.test_pos, pids,
-                                    nms=True, print_results=False)
-        q_run = passes[0][2]
-        ok, ties = recalls_tie_equal(recalls, want, q_red, g_red,
-                                     dataset.test_pos, pids)
-        check(ok, f"run_eval Recall@1/5/10 {list(map(float, recalls))} == "
-                  f"per-shape descriptors' {list(map(float, want))} through "
-                  f"evaluate_descriptors, up to ties ({ties} near-ties at a "
-                  f"cut); reduced query descriptors {q_run.shape[1]}-d, "
-                  f"run_eval's vs per-shape max |gap| "
-                  f"{float((q_run - q_red).abs().max()):.3g}")
+    # K1 on a gallery batch against the plain head
+    g_src = ImageSource(dataset.db_test, dataset.images_dir,
+                        TestTransform(H, W, device_normalize=True))
+    gb = torch.from_numpy(np.stack(
+        [g_src.load(i) for i in range(N_IMG)])).to(dev)
+    nv = model.net_vlad
+    with torch.inference_mode(), f32_precision():
+        fmap = model.base(gb)[1]
+        got = nk.netvlad_fused(fmap, nv.assign_w, nv.centroids,
+                               postprocess=True)
+        ref = nk.netvlad_plain(fmap, nv.assign_w, nv.centroids,
+                               postprocess=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    check(True, f"K1 == plain head on a Tokyo gallery batch "
+                f"{tuple(fmap.shape)}, max_abs_err "
+                f"{float((got - ref).abs().max()):.3g} "
+                f"({gate_ratio(got, ref):.4f} of the gate)")
 
-        # the k-reciprocal rerank on the card: run_eval(rerank=True) (k1 25,
-        # lambda 0; the PCA fitted above is loaded), against the CPU's
-        # rerank of the same descriptors
-        from openibl_tpu_torch.ops.rerank import (composite_rank_key,
-                                                  re_ranking)
+    # run_eval's recalls against the per-shape descriptors' (through
+    # the PCA run_eval fitted and the gallery it extracted)
+    pca = PCA(TOKYO_PCA_DIM, params_path=array_file(osp.join(
+        tmp, "logs", "pca_params_model_best.h5")))
+    q_red, g_red = pca.infer(ps), passes[1][2]
+    pids = [it[1] for it in dataset.db_test]
+    want = evaluate_descriptors(q_red, g_red, dataset.test_pos, pids,
+                                nms=True, print_results=False)
+    q_run = passes[0][2]
+    ok, ties = recalls_tie_equal(recalls, want, q_red, g_red,
+                                 dataset.test_pos, pids)
+    check(ok, f"run_eval Recall@1/5/10 {list(map(float, recalls))} == "
+              f"per-shape descriptors' {list(map(float, want))} through "
+              f"evaluate_descriptors, up to ties ({ties} near-ties at a "
+              f"cut); reduced query descriptors {q_run.shape[1]}-d, "
+              f"run_eval's vs per-shape max |gap| "
+              f"{float((q_run - q_red).abs().max()):.3g}")
 
-        rr_cfg = dataclasses.replace(cfg, rerank=True, rr_topk=25,
-                                     lambda_value=0.0)
-        passes.clear()
-        rr_timer = PhaseTimer(dev)
-        Evaluator.extract = counted_extract
-        t0 = time.perf_counter()
-        try:
-            nk.netvlad_fused.launches = 0  # the rerank eval path starts
-            rr_recalls = pipeline.run_eval(rr_cfg, verbose=False,
-                                           timer=rr_timer)
-            rr_launches = nk.netvlad_fused.launches  # ... and ends
-        finally:
-            Evaluator.extract = extract
-        print(f"phase tokyo: run_eval with the k-reciprocal rerank (k1 25, "
-              f"lambda 0) in {time.perf_counter() - t0:.2f} s; Recall@1/5/10"
-              f" {list(map(float, rr_recalls))} (without: "
-              f"{list(map(float, recalls))}); K1 launches {rr_launches} "
-              f"[{card}]")
-        print("  " + rr_timer.summary().replace("\n", "\n  ")
-              + f" [{card}]")
-        print(f"timing tokyo rerank in run_eval ({n_q} queries + "
-              f"{len(dataset.db_test)} gallery, materialized re_ranking): "
-              f"{rr_timer.totals['rerank']:.4f} s (host clock to a "
-              f"synchronize) [{card}]")
-        q_rr, g_rr = (x[2].cpu() for x in passes)
-        want = evaluate_descriptors(q_rr, g_rr, dataset.test_pos, pids,
-                                    nms=True, rerank=True, rr_topk=25,
-                                    print_results=False)
-        sq = lambda a, b: torch.cdist(a, b).square().numpy()  # noqa: E731
-        final = re_ranking(sq(q_rr, g_rr), sq(q_rr, q_rr), sq(g_rr, g_rr),
-                           k1=25, k2=1, lambda_value=0.0, device="cpu")
-        ok, ties = recalls_tie_equal(
-            rr_recalls, want, q_rr, g_rr, dataset.test_pos, pids,
-            d=composite_rank_key(final, sq(q_rr, g_rr)))
-        check(ok and rr_launches > 0,
-              f"rerank on the card: Recall@1/5/10 "
-              f"{list(map(float, rr_recalls))} == the CPU's rerank of the "
-              f"same descriptors {list(map(float, want))}, up to ties "
-              f"({ties} near-ties at a cut, final distance < 1e-4); K1 "
-              f"launched {rr_launches} times (gallery pass)")
-        passes.clear()
+    # the k-reciprocal rerank on the card: run_eval(rerank=True) (k1 25,
+    # lambda 0; the PCA fitted above is loaded), against the CPU's
+    # rerank of the same descriptors
+    from openibl_tpu_torch.ops.rerank import (composite_rank_key,
+                                              re_ranking)
 
-        # rates: each bucket through the masked forward, the same batch
-        # unmasked (K1) and the backbone alone both ways (the re-zeroing's
-        # cost), the reference's per-shape batch-1 loop, the gallery (K1)
-        with torch.inference_mode():
-            for images, hws, idx, count in buckets:
-                x = torch.from_numpy(images).to(dev)
-                hw = torch.from_numpy(hws).to(dev)
-                fill = sum(int(h) * int(w) for h, w in hws[:count]) / (
-                    count * images.shape[1] * images.shape[2])
-                ms = cuda_ms(lambda: emodel.forward_masked(x, hw), reps=5,
-                             warmup=1)
-                plain = cuda_ms(lambda: emodel(x), reps=5, warmup=1)
-                with f32_precision():
-                    b_m = cuda_ms(lambda: model.base(x, hw), reps=5,
-                                  warmup=1)
-                    b_p = cuda_ms(lambda: model.base(x), reps=5, warmup=1)
-                print(f"timing tokyo masked query bucket "
-                      f"{images.shape[1]}x{images.shape[2]}, {count} "
-                      f"queries padded to batch {len(images)}, fill "
-                      f"{fill:.3f}: {len(images) / ms * 1e3:.2f} img/s "
-                      f"({ms:.2f} ms/batch, {count / ms * 1e3:.2f} queries/s)"
-                      f"; unmasked at the same shape (K1) "
-                      f"{len(images) / plain * 1e3:.2f} img/s ({plain:.2f} "
-                      f"ms); backbone masked {b_m:.2f} ms vs unmasked "
-                      f"{b_p:.2f} ms (+{(b_m / b_p - 1) * 100:.2f}%) "
-                      f"[{card}]")
-                del x
-            ms = cuda_ms(lambda: [fwd(x) for x in per_shape], reps=3,
+    rr_cfg = dataclasses.replace(cfg, rerank=True, rr_topk=25,
+                                 lambda_value=0.0)
+    passes.clear()
+    rr_timer = PhaseTimer(dev)
+    Evaluator.extract = counted_extract
+    t0 = time.perf_counter()
+    try:
+        nk.netvlad_fused.launches = 0  # the rerank eval path starts
+        rr_recalls = pipeline.run_eval(rr_cfg, verbose=False,
+                                       timer=rr_timer)
+        rr_launches = nk.netvlad_fused.launches  # ... and ends
+    finally:
+        Evaluator.extract = extract
+    print(f"phase tokyo: run_eval with the k-reciprocal rerank (k1 25, "
+          f"lambda 0) in {time.perf_counter() - t0:.2f} s; Recall@1/5/10"
+          f" {list(map(float, rr_recalls))} (without: "
+          f"{list(map(float, recalls))}); K1 launches {rr_launches} "
+          f"[{card}]")
+    print("  " + rr_timer.summary().replace("\n", "\n  ")
+          + f" [{card}]")
+    print(f"timing tokyo rerank in run_eval ({n_q} queries + "
+          f"{len(dataset.db_test)} gallery, materialized re_ranking): "
+          f"{rr_timer.totals['rerank']:.4f} s (host clock to a "
+          f"synchronize) [{card}]")
+    q_rr, g_rr = (x[2].cpu() for x in passes)
+    want = evaluate_descriptors(q_rr, g_rr, dataset.test_pos, pids,
+                                nms=True, rerank=True, rr_topk=25,
+                                print_results=False)
+    sq = lambda a, b: torch.cdist(a, b).square().numpy()  # noqa: E731
+    final = re_ranking(sq(q_rr, g_rr), sq(q_rr, q_rr), sq(g_rr, g_rr),
+                       k1=25, k2=1, lambda_value=0.0, device="cpu")
+    ok, ties = recalls_tie_equal(
+        rr_recalls, want, q_rr, g_rr, dataset.test_pos, pids,
+        d=composite_rank_key(final, sq(q_rr, g_rr)))
+    check(ok and rr_launches > 0,
+          f"rerank on the card: Recall@1/5/10 "
+          f"{list(map(float, rr_recalls))} == the CPU's rerank of the "
+          f"same descriptors {list(map(float, want))}, up to ties "
+          f"({ties} near-ties at a cut, final distance < 1e-4); K1 "
+          f"launched {rr_launches} times (gallery pass)")
+    passes.clear()
+
+    # rates: each bucket through the masked forward, the same batch
+    # unmasked (K1) and the backbone alone both ways (the re-zeroing's
+    # cost), the reference's per-shape batch-1 loop, the gallery (K1)
+    with torch.inference_mode():
+        for images, hws, idx, count in buckets:
+            x = torch.from_numpy(images).to(dev)
+            hw = torch.from_numpy(hws).to(dev)
+            fill = sum(int(h) * int(w) for h, w in hws[:count]) / (
+                count * images.shape[1] * images.shape[2])
+            ms = cuda_ms(lambda: emodel.forward_masked(x, hw), reps=5,
                          warmup=1)
-            print(f"timing tokyo per-shape batch-1 loop (the reference's "
-                  f"strategy), {n_q} queries at their own shapes through "
-                  f"K1: {n_q / ms * 1e3:.2f} img/s ({ms:.2f} ms) [{card}]")
-            ms = cuda_ms(lambda: fwd(gb), reps=5, warmup=1)
-            print(f"timing tokyo gallery {H}x{W} batch {N_IMG} through K1: "
-                  f"{N_IMG / ms * 1e3:.2f} img/s ({ms:.2f} ms/batch) "
+            plain = cuda_ms(lambda: emodel(x), reps=5, warmup=1)
+            with f32_precision():
+                b_m = cuda_ms(lambda: model.base(x, hw), reps=5,
+                              warmup=1)
+                b_p = cuda_ms(lambda: model.base(x), reps=5, warmup=1)
+            print(f"timing tokyo masked query bucket "
+                  f"{images.shape[1]}x{images.shape[2]}, {count} "
+                  f"queries padded to batch {len(images)}, fill "
+                  f"{fill:.3f}: {len(images) / ms * 1e3:.2f} img/s "
+                  f"({ms:.2f} ms/batch, {count / ms * 1e3:.2f} queries/s)"
+                  f"; unmasked at the same shape (K1) "
+                  f"{len(images) / plain * 1e3:.2f} img/s ({plain:.2f} "
+                  f"ms); backbone masked {b_m:.2f} ms vs unmasked "
+                  f"{b_p:.2f} ms (+{(b_m / b_p - 1) * 100:.2f}%) "
                   f"[{card}]")
-        del model, emodel, cpu_model, per_shape, masked, ps, gb, fmap
-        passes.clear()
-        torch.cuda.empty_cache()
+            del x
+        ms = cuda_ms(lambda: [fwd(x) for x in per_shape], reps=3,
+                     warmup=1)
+        print(f"timing tokyo per-shape batch-1 loop (the reference's "
+              f"strategy), {n_q} queries at their own shapes through "
+              f"K1: {n_q / ms * 1e3:.2f} img/s ({ms:.2f} ms) [{card}]")
+        ms = cuda_ms(lambda: fwd(gb), reps=5, warmup=1)
+        print(f"timing tokyo gallery {H}x{W} batch {N_IMG} through K1: "
+              f"{N_IMG / ms * 1e3:.2f} img/s ({ms:.2f} ms/batch) "
+              f"[{card}]")
+    del model, emodel, cpu_model, per_shape, masked, ps, gb, fmap
+    passes.clear()
+    torch.cuda.empty_cache()
     return launches, rr_launches
+
+
+def jitter_phase(dev, card, seed, tmp):
+    """(j) On-device ColorJitter at full width on the training phase's
+    world under ``tmp``: a tuple batch of 1 + 1 + 10 images at 480x640.
+    Checks apply_jitter on the card against the CPU with the same draws
+    (atol JITTER_ATOL on the 0..255 scale: the contrast mean sums in
+    another order, and the card multiplies by a scalar's reciprocal where
+    the CPU divides), zero ranges bit for bit, one device_jitter=True
+    Trainer.step and one SFRS gen-1 step (1 + 1 + 10 + 10 images) on the
+    card against the same steps on the CPU from the same generator seeds,
+    at the training phases' gate (step_gap); the SFRS step with cuDNN off
+    on the card, its cuDNN step printed beside it against the card's f64
+    step. Prints the jitter pass's time per tuple batch and its share of
+    the jittered step (CUDA events)."""
+    import copy
+
+    from openibl_tpu_torch.config import DataConfig, SFRSConfig, TrainConfig
+    from openibl_tpu_torch.data.loader import ImageSource
+    from openibl_tpu_torch.data.transforms import TestTransform
+    from openibl_tpu_torch.engine import pipeline
+    from openibl_tpu_torch.engine.sfrs import SFRSTrainer, make_teacher
+    from openibl_tpu_torch.engine.trainer import Trainer, device_jitter_batch
+    from openibl_tpu_torch.ops import augment
+
+    data = DataConfig(dataset="synthetic", scale=None,
+                      data_dir=osp.join(tmp, "data"), height=H, width=W,
+                      test_batch_size=N_IMG)
+    logs = dict(logs_dir=osp.join(tmp, "jitter_logs"),
+                init_dir=osp.join(tmp, "logs"))  # the cached centroids
+    cfg = TrainConfig(data=data, loss_type="sare_ind", neg_num=TRAIN_NEG,
+                      seed=seed, device_jitter=True, **logs)
+    dataset = pipeline.load_dataset(cfg)
+    src = ImageSource(dataset.q_train + dataset.db_train, dataset.images_dir,
+                      TestTransform(H, W, device_normalize=True))
+    n_img = 2 + TRAIN_NEG
+    tup = np.stack([src.load(i) for i in range(n_img)])[None]
+    x = torch.from_numpy(tup[0])
+    x_dev = x.to(dev)
+    factors, orders = augment.draw_jitter(
+        n_img, torch.Generator().manual_seed(seed))
+    on_cpu = augment.apply_jitter(x, factors, orders)
+    on_card = augment.apply_jitter(x_dev, factors, orders)
+    err = float((on_card.cpu() - on_cpu).abs().max())
+    check(on_card.device == x_dev.device and err <= JITTER_ATOL,
+          f"apply_jitter on the card == on the CPU for {tuple(x.shape)} "
+          f"uint8 images, the same factors and op orders: max |gap| "
+          f"{err:.3g} (atol {JITTER_ATOL} on the 0..255 scale)")
+    zero = augment.color_jitter_batch(x_dev, torch.Generator(), 0, 0, 0, 0)
+    check(torch.equal(zero.cpu(), x.float()),
+          "color_jitter_batch with all four ranges at 0 on the card: the "
+          "f32 input bit for bit")
+
+    cpu = torch.device("cpu")
+
+    def step_runs(model, make_trainer, step, variants):
+        """The step from copies of ``model`` in each (name, device, dtype,
+        cuDNN on) variant: {name: (losses, {name: parameter as f64 on the
+        CPU})}."""
+        runs = {}
+        for name, where, dt, cudnn in variants:
+            m = copy.deepcopy(model).to(where, dt)
+            m.base.compute_dtype = dt
+            prev, torch.backends.cudnn.enabled = \
+                torch.backends.cudnn.enabled, cudnn
+            try:
+                losses = [float(v) for v in step(make_trainer(m), where,
+                                                  dt)]
+            finally:
+                torch.backends.cudnn.enabled = prev
+            runs[name] = (losses, {k: v.detach().cpu().double()
+                                   for k, v in m.state_dict().items()})
+            del m
+        return runs
+
+    model = pipeline.build_model(cfg, dataset, dev)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def trainer(m):
+        tr = Trainer(m, loss_type=cfg.loss_type, margin=cfg.margin,
+                     lr=cfg.lr, momentum=cfg.momentum,
+                     weight_decay=cfg.weight_decay, device_jitter=True)
+        tr.init()
+        return tr
+
+    t0 = time.perf_counter()
+    runs = step_runs(model, trainer, lambda tr, *_: [tr.step(
+        tup, torch.Generator().manual_seed(seed + 7))],
+        (("card", dev, torch.float32, True),
+         ("cpu", cpu, torch.float32, True)))
+    gap = step_gap(runs["card"], runs["cpu"], before)
+    check(gap[0] < 1e-4 and gap[1][0] <= 1.0 and gap[3],
+          f"one device_jitter=True train step on the card == on the CPU "
+          f"(one generator seed, {n_img} images jittered on each): loss "
+          f"{runs['card'][0]} vs {runs['cpu'][0]}; {gap_text(gap)} (gates: "
+          f"loss 1e-4, updates 1, parameters within rtol 1e-3 / atol 1e-3 "
+          f"of the layer's largest update; {time.perf_counter() - t0:.2f} "
+          f"s)")
+
+    # the jitter pass against the jittered step it runs in (CUDA events;
+    # the step's H2D of the uint8 batch included, as the train phase's)
+    tr = trainer(copy.deepcopy(model))
+    jit_ms = cuda_ms(lambda: device_jitter_batch(
+        x_dev, torch.Generator().manual_seed(1)), reps=10, warmup=2)
+    step_ms = cuda_ms(lambda: tr.step(
+        tup, torch.Generator().manual_seed(1)), reps=5, warmup=1)
+    print(f"timing device jitter {n_img} images {H}x{W} (ColorJitter "
+          f"0.7/0.7/0.7/0.5 + mean subtraction): {jit_ms:.3f} ms per tuple "
+          f"batch, {jit_ms / step_ms * 100:.2f}% of the jittered train step "
+          f"({step_ms:.2f} ms, 1 tuple x {n_img} images, sare_ind f32; "
+          f"CUDA events) [{card}]")
+    del tr, model
+
+    scfg = SFRSConfig(data=data, loss_type="sare_ind", tuple_size=1,
+                      neg_num=SFRS_NEG, pos_num=SFRS_POS, seed=seed,
+                      device_jitter=True, **logs)
+    student = pipeline.build_model(scfg, dataset, dev, region=True)
+    before = {k: v.detach().clone() for k, v in student.state_dict().items()}
+    teacher = make_teacher(student)
+    stup = np.stack([src.load(i) for i in range(2 + SFRS_NEG + SFRS_POS)])
+
+    def sfrs_step(tr, where, dt):
+        t = copy.deepcopy(teacher).to(where, dt)
+        t.base.compute_dtype = dt
+        return tr.step(t, stup[None], 1,
+                       torch.Generator().manual_seed(seed + 8))
+
+    def sfrs_trainer(m):
+        tr = SFRSTrainer(m, loss_type=scfg.loss_type, margin=scfg.margin,
+                         temps=scfg.temperature,
+                         soft_weight=scfg.soft_weight, neg_num=SFRS_NEG,
+                         lr=scfg.lr, momentum=scfg.momentum,
+                         weight_decay=scfg.weight_decay, device_jitter=True)
+        tr.init_generation()
+        return tr
+
+    # the SFRS phase's step sits near the gate on the card with cuDNN's f32
+    # convolutions (their error, PERF.md §6 PR 8): the jittered step is
+    # gated on the card with PyTorch's own convolutions, and with cuDNN it
+    # is printed beside both against the card's f64 step
+    t0 = time.perf_counter()
+    runs = step_runs(student, sfrs_trainer, sfrs_step, (
+        ("card_no_cudnn", dev, torch.float32, False),
+        ("cpu", cpu, torch.float32, True),
+        ("card", dev, torch.float32, True),
+        ("card_f64", dev, torch.float64, True)))
+    gap = step_gap(runs["card_no_cudnn"], runs["cpu"], before)
+    check(gap[0] < 1e-4 and gap[1][0] <= 1.0 and gap[3],
+          f"one device_jitter=True SFRS gen-1 step (1 + 1 + {SFRS_NEG} + "
+          f"{SFRS_POS} images jittered once, then split) on the card "
+          f"(cuDNN off) == on the CPU: hard/soft losses "
+          f"{runs['card_no_cudnn'][0]} vs {runs['cpu'][0]}; {gap_text(gap)} "
+          f"(gates as above; {time.perf_counter() - t0:.2f} s for the "
+          f"four steps)")
+    print(f"  the jittered SFRS step with cuDNN on the card against the "
+          f"CPU: {gap_text(step_gap(runs['card'], runs['cpu'], before))}; "
+          f"against the card's f64 step {runs['card_f64'][0]}: " + "; ".join(
+              f"{name}: "
+              f"{gap_text(step_gap(runs[name], runs['card_f64'], before))}"
+              for name in ("card", "cpu", "card_no_cudnn")) + f" [{card}]")
+    del student, teacher
+    torch.cuda.empty_cache()
+
+
+class Arrays:
+    """An image source over an in-memory uint8 (N, H, W, 3) array."""
+
+    def __init__(self, images):
+        self.images = images
+
+    def __len__(self):
+        return len(self.images)
+
+    def load(self, i):
+        return self.images[i]
+
+
+def eval_model(ckpt, device):
+    """``eval_view`` of the EmbedNet (K=64) of a JAX-layout checkpoint, on
+    ``device``: K1 on the card."""
+    from openibl_tpu_torch import models
+    from openibl_tpu_torch.engine import pipeline
+    from openibl_tpu_torch.models.convert import params_from_jax
+    from openibl_tpu_torch.utils.checkpoint import read_checkpoint
+
+    model = models.create("embednet", net_vlad=models.NetVLAD(num_clusters=64))
+    model.load_state_dict(params_from_jax(read_checkpoint(ckpt)[0]["params"]))
+    return pipeline.eval_view(
+        model.to(device, memory_format=torch.channels_last).eval())
+
+
+def planted_gallery(device, seed, rows, desc, n_rows):
+    """The served gallery, made from its seed on ``device``: ``n_rows``
+    random unit rows, ``desc`` planted at ``rows``."""
+    gg = torch.Generator(device=device).manual_seed(seed + 1)
+    gallery = torch.randn((n_rows, desc.shape[1]), generator=gg,
+                          device=device)
+    gallery /= gallery.norm(dim=1, keepdim=True)
+    gallery[torch.as_tensor(rows, device=device)] = torch.as_tensor(
+        desc, device=device)
+    return gallery
+
+
+def gloo_rank(rank, tmp, seed, device):
+    """One of the mesh phase's two ranks on the one card (``device``, e.g.
+    "cuda"): a gloo group over its tensors (file store under ``tmp``),
+    extract_features_sharded
+    through K1 and topk_nearest_sharded over the gallery; the results and
+    K1's launches go to ``tmp``/rank<r>.npz."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.ops.distance import topk_nearest_sharded
+    from openibl_tpu_torch.parallel.extract import extract_features_sharded
+    from openibl_tpu_torch.parallel.mesh import get_mesh
+    from openibl_tpu_torch.utils import f32_precision
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=2)
+    try:
+        mesh = get_mesh(2, device=device)
+        inputs = np.load(osp.join(tmp, "mesh_inputs.npz"))
+        model = eval_model(osp.join(tmp, "model.npz"), mesh.device)
+        nk.netvlad_fused.launches = 0  # the 2-rank path starts
+        feats = extract_features_sharded(model, Arrays(inputs["images"]),
+                                         batch_size=int(inputs["batch"]),
+                                         mesh=mesh)
+        launches = nk.netvlad_fused.launches  # ... and ends
+        desc = torch.from_numpy(inputs["desc"]).to(mesh.device)
+        gallery = planted_gallery(mesh.device, seed, inputs["rows"], desc,
+                                  int(inputs["n_rows"]))
+        # a CPU rehearsal of this phase passes device "cpu"
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        with f32_precision():
+            topk_nearest_sharded(desc, gallery, mesh, k=10)
+            sync()
+            t0 = time.perf_counter()
+            d, i = topk_nearest_sharded(desc, gallery, mesh, k=10)
+            sync()
+            knn_ms = (time.perf_counter() - t0) * 1e3
+        np.savez(osp.join(tmp, f"rank{rank}.npz"), feats=feats,
+                 d=d.cpu().numpy(), i=i.cpu().numpy(), launches=launches,
+                 knn_ms=knn_ms, device=str(mesh.device))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(eval_tree, gallery, desc, rows, dev, card, seed, tmp):
+    """(m) The process-group mesh on the card. World size 1 through NCCL: a
+    one-rank torchrun environment on a free localhost port, then
+    maybe_init_distributed() and get_mesh(); extract_features_sharded
+    (K1) against extract_features on 37 scenes at 480x640,
+    topk_nearest_sharded over the 100,000 x 4096 gallery against
+    topk_nearest (the same top-10 up to ties), run_eval(mesh=) on the Tokyo
+    phase's mini root under ``tmp`` against the unsharded run_eval (each
+    fitting its PCA on demand), and the times of the all-gather and the
+    sharded kNN beside the unsharded ones; the group is destroyed after.
+    Then two ranks on the one card through gloo (NCCL refuses two ranks on
+    one device; gloo takes CUDA tensors for the all-gather), two spawned
+    processes whose sharded extraction and kNN are held to the
+    single-process results. K1's count is 0 just before each path and
+    read just after. Returns K1's launches by path."""
+    import multiprocessing
+    import socket
+
+    import torch.distributed as dist
+
+    from openibl_tpu_torch.config import DataConfig, EvalConfig
+    from openibl_tpu_torch.data.loader import BatchLoader
+    from openibl_tpu_torch.engine import pipeline
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.ops.distance import (topk_nearest,
+                                                topk_nearest_sharded)
+    from openibl_tpu_torch.parallel.extract import (extract_features,
+                                                    extract_features_sharded)
+    from openibl_tpu_torch.parallel.mesh import (all_gather_rows, get_mesh,
+                                                 maybe_init_distributed)
+    from openibl_tpu_torch.utils import f32_precision
+    from openibl_tpu_torch.utils.checkpoint import save_checkpoint
+
+    launches = {}
+    images = scenes(np.random.RandomState(seed + 5), 37)
+    save_checkpoint(osp.join(tmp, "model.npz"), {"params": eval_tree})
+    model = eval_model(osp.join(tmp, "model.npz"), dev)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        maybe_init_distributed(device=dev)
+        mesh = get_mesh(device=dev)
+        check(dist.get_backend() == "nccl" and (mesh.rank, mesh.size)
+              == (0, 1) and mesh.device.type == dev.type,
+              f"maybe_init_distributed + get_mesh in a one-rank torchrun "
+              f"environment: NCCL, rank 0 of 1 on {mesh.device} "
+              f"({time.perf_counter() - t0:.2f} s)")
+
+        # extraction: sharded (one rank: one plain pass) against plain
+        src = Arrays(images)
+        plain = extract_features(model, BatchLoader(src, batch_size=N_IMG),
+                                 device_output=True)
+        nk.netvlad_fused.launches = 0  # the sharded extraction starts
+        sharded = extract_features_sharded(model, src, batch_size=N_IMG,
+                                           mesh=mesh, device_output=True)
+        launches["sharded_extract"] = nk.netvlad_fused.launches
+        torch.testing.assert_close(sharded, plain, rtol=RTOL, atol=ATOL)
+        check(launches["sharded_extract"] > 0,
+              f"extract_features_sharded at world size 1 (NCCL) == "
+              f"extract_features on {len(images)} images {H}x{W}: max |gap| "
+              f"{float((sharded - plain).abs().max()):.3g}; K1 launched "
+              f"{launches['sharded_extract']} times")
+        ext_s = []
+        for fn in (lambda: extract_features(
+                model, BatchLoader(src, batch_size=N_IMG),
+                device_output=True),
+                lambda: extract_features_sharded(
+                    model, src, batch_size=N_IMG, mesh=mesh,
+                    device_output=True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ext_s.append(time.perf_counter() - t0)
+
+        # the kNN over the gallery: sharded (one rank) against plain
+        with f32_precision():
+            d_p, i_p = topk_nearest(desc, gallery, k=10)
+            d_s, i_s = topk_nearest_sharded(desc, gallery, mesh, k=10)
+            check(*same_top10(d_s, i_s, d_p, i_p,
+                              f"topk_nearest_sharded (NCCL, world size 1) "
+                              f"vs topk_nearest, {len(desc)} queries over "
+                              f"{GALLERY} x {DIM}"))
+            check(torch.equal(i_s[:, 0].cpu(), torch.as_tensor(rows)),
+                  "sharded kNN: every top-1 is its planted row")
+            knn_ms = cuda_ms(lambda: topk_nearest(desc, gallery, k=10))
+            sknn_ms = cuda_ms(lambda: topk_nearest_sharded(
+                desc, gallery, mesh, k=10))
+        pairs = (d_s, i_s, plain)
+        gather_ms = [cuda_ms(lambda: all_gather_rows(mesh, t))
+                     for t in pairs]
+        print(f"timing mesh world size 1 (NCCL): extract_features "
+              f"{ext_s[0]:.4f} s, extract_features_sharded {ext_s[1]:.4f} s "
+              f"({len(images)} images, host clock to a synchronize); "
+              f"topk_nearest {knn_ms:.4f} ms, topk_nearest_sharded "
+              f"{sknn_ms:.4f} ms ({len(desc)} queries, top-10 of "
+              f"{GALLERY} x {DIM}, CUDA events); all_gather_rows of the "
+              f"(Q, 10) distances {gather_ms[0]:.4f} ms, indices "
+              f"{gather_ms[1]:.4f} ms, the ({len(images)}, "
+              f"{plain.shape[1]}) descriptors {gather_ms[2]:.4f} ms [{card}]")
+
+        # run_eval on the Tokyo root: unsharded, and with the mesh
+        recalls, walls = {}, {}
+        for run in ("one", "mesh"):
+            ckpt = save_checkpoint(osp.join(tmp, f"eval_{run}",
+                                            "model_best.npz"),
+                                   {"params": eval_tree}, {"epoch": 0})
+            cfg = EvalConfig(
+                data=DataConfig(dataset="tokyo",
+                                data_dir=osp.join(tmp, "data"), height=H,
+                                width=W, test_batch_size=N_IMG),
+                checkpoint=ckpt, nms=True, reduction=True,
+                pca_dataset="tokyo", pca_dim=TOKYO_PCA_DIM)
+            t0 = time.perf_counter()
+            nk.netvlad_fused.launches = 0  # the sharded eval path starts
+            recalls[run] = pipeline.run_eval(
+                cfg, device=dev, verbose=False,
+                mesh=mesh if run == "mesh" else None)
+            n = nk.netvlad_fused.launches  # ... and ends
+            walls[run] = time.perf_counter() - t0
+            if run == "mesh":
+                launches["sharded_eval"] = n
+        check(np.array_equal(recalls["mesh"], recalls["one"])
+              and launches["sharded_eval"] > 0,
+              f"run_eval(mesh=) on the Tokyo root (NCCL, world size 1; PCA "
+              f"fitted on demand through the sharded extraction) == "
+              f"run_eval: Recall@1/5/10 {list(map(float, recalls['mesh']))}"
+              f"; K1 launched {launches['sharded_eval']} times")
+        print(f"timing mesh run_eval tokyo: {walls['mesh']:.2f} s with the "
+              f"mesh, {walls['one']:.2f} s without (host clock, PCA fit "
+              f"included) [{card}]")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(not dist.is_initialized(), "the NCCL process group is destroyed")
+
+    # two ranks on the one card through gloo, against the results above
+    np.savez(osp.join(tmp, "mesh_inputs.npz"), images=images,
+             desc=desc.cpu().numpy(), rows=np.asarray(rows),
+             n_rows=len(gallery), batch=N_IMG)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=gloo_rank, args=(r, tmp, seed, dev.type))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"two gloo ranks on the one card ran to their end: exit codes "
+          f"{[p.exitcode for p in procs]} ({time.perf_counter() - t0:.2f} s "
+          f"with start-up)")
+    outs = [np.load(osp.join(tmp, f"rank{r}.npz")) for r in range(2)]
+    for key in ("feats", "d", "i"):
+        check(np.array_equal(outs[0][key], outs[1][key]),
+              f"two gloo ranks: both hold the same {key}")
+    got = torch.from_numpy(outs[0]["feats"])
+    ref = plain.cpu()
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    launches["two_rank_gloo"] = int(sum(o["launches"] for o in outs))
+    check(launches["two_rank_gloo"] > 0
+          and all(str(o["device"]) == str(mesh.device) for o in outs),
+          f"extract_features_sharded on 2 gloo ranks on {mesh.device} "
+          f"({len(images)} images: 19 each, the last one padded) == "
+          f"single-process extract_features: max |gap| "
+          f"{float((got - ref).abs().max()):.3g} ({gate_ratio(got, ref):.4f} "
+          f"of the rtol {RTOL} / atol {ATOL} gate); K1 launched "
+          f"{launches['two_rank_gloo']} times over both ranks")
+    check(*same_top10(torch.from_numpy(outs[0]["d"]),
+                      torch.from_numpy(outs[0]["i"]), d_p.cpu(), i_p.cpu(),
+                      f"topk_nearest_sharded on 2 gloo ranks ({GALLERY // 2} "
+                      f"rows each) vs single-process topk_nearest"))
+    print(f"timing mesh 2 gloo ranks on one card: topk_nearest_sharded "
+          f"{float(outs[0]['knn_ms']):.4f} ms on rank 0 ({len(desc)} "
+          f"queries, top-10 of {GALLERY} x {DIM}; host clock to a "
+          f"synchronize, the all-gather through host memory) [{card}]")
+    del model, plain, sharded
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -2265,11 +2731,8 @@ def run(dev, seed=0):
           f"median {float(d2.median()):.4f} [{card}]")
 
     # -- phase 4: gallery on the device, planted rows, retrieval checks -------
-    gg = torch.Generator(device=dev).manual_seed(seed + 1)
-    gallery = torch.randn((GALLERY, DIM), generator=gg, device=dev)
-    gallery /= gallery.norm(dim=1, keepdim=True)
     rows = torch.from_numpy(rng.choice(GALLERY, PLANTED, replace=False))
-    gallery[rows.to(dev)] = desc_k1
+    gallery = planted_gallery(dev, seed, rows, desc_k1, GALLERY)
     torch.cuda.synchronize()
     d_k1, i_k1 = topk_nearest(desc_k1, gallery, k=10)
     d_pl, i_pl = topk_nearest(desc_plain, gallery, k=10)
@@ -2383,13 +2846,20 @@ def run(dev, seed=0):
     del built
     torch.cuda.empty_cache()
 
-    # -- phase 9b (f): the training slice; 9d: SFRS on the same world -------
+    # -- phase 9b (f): the training slice; 9d: SFRS on the same world; 9e
+    # (j): the on-device jitter in both trainers, on that world too -------
     with tempfile.TemporaryDirectory() as tmp:
         train_launches = train_phase(dev, card, seed, tmp)
         sfrs_launches = sfrs_phase(dev, card, seed, tmp)
+        jitter_phase(dev, card, seed, tmp)
 
-    # -- phase 9c (h): checkpoint evaluation, Tokyo 24/7, and the rerank ----
-    tokyo_launches, rerank_launches = tokyo_phase(eval_tree, dev, card, seed)
+    # -- phase 9c (h): checkpoint evaluation, Tokyo 24/7, and the rerank;
+    # 9f (m): the mesh (NCCL at world size 1, then two gloo ranks) ---------
+    with tempfile.TemporaryDirectory() as tmp:
+        tokyo_launches, rerank_launches = tokyo_phase(eval_tree, dev, card,
+                                                      seed, tmp)
+        mesh_launches = mesh_phase(eval_tree, gallery, desc_k1, rows, dev,
+                                   card, seed, tmp)
     del eval_tree
 
     # -- phase 10: each kernel's host enqueue time, then the launch floor
@@ -2415,13 +2885,15 @@ def run(dev, seed=0):
          "source": "openibl_tpu_torch/csrc/netvlad.cu",
          "replaces": "openibl_tpu/ops/netvlad_kernel.py:74",
          "launches": (k1_launches + k1_quant + train_launches
-                      + sfrs_launches + tokyo_launches + rerank_launches),
+                      + sfrs_launches + tokyo_launches + rerank_launches
+                      + sum(mesh_launches.values())),
          "launches_by_path": {"serve_exact": k1_launches,
                               "serve_exact_quant": k1_quant,
                               "train": train_launches,
                               "sfrs": sfrs_launches,
                               "tokyo_eval": tokyo_launches,
-                              "tokyo_eval_rerank": rerank_launches}, **k1},
+                              "tokyo_eval_rerank": rerank_launches,
+                              **mesh_launches}, **k1},
         {"name": "pq_adc", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/pq_adc.cu",
          "replaces": "openibl_tpu/ops/pq_kernel.py:84",

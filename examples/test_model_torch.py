@@ -5,8 +5,11 @@ openibl_tpu_torch.engine.pipeline.run_eval).
 On the card:
   python examples/test_model_torch.py -d pitts --scale 250k --checkpoint logs/model_best.npz
   python examples/test_model_torch.py -d tokyo --checkpoint vgg16_netvlad.pth --nms
-On the CPU, add ``--device cpu``. Without ``--device`` the run needs a CUDA
-card and raises without one.
+On N cards, one process each (NCCL; the extraction and the kNN are split
+over the ranks, only rank 0 prints):
+  torchrun --nproc-per-node=N examples/test_model_torch.py -d pitts --checkpoint logs/model_best.npz
+On the CPU, add ``--device cpu`` (gloo across processes). Without
+``--device`` the run needs a CUDA card and raises without one.
 """
 
 import argparse
@@ -17,6 +20,9 @@ sys.path.insert(0, osp.join(osp.dirname(osp.abspath(__file__)), ".."))
 
 from openibl_tpu_torch.config import DataConfig, EvalConfig  # noqa: E402
 from openibl_tpu_torch.engine.pipeline import run_eval  # noqa: E402
+from openibl_tpu_torch.parallel.mesh import (  # noqa: E402
+    get_mesh, maybe_init_distributed,
+)
 
 
 def main(argv=None):
@@ -43,7 +49,7 @@ def main(argv=None):
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--test-batch-size", type=int, default=32)
     p.add_argument("--rerank", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 10)")
+                   help="k-reciprocal rerank (k1 --rr-topk, k2 1)")
     p.add_argument("--rr-topk", type=int, default=25)
     p.add_argument("--lambda-value", type=float, default=0.0)
     p.add_argument("--nms", action="store_true", help="Tokyo spatial NMS")
@@ -52,7 +58,12 @@ def main(argv=None):
                         "checkpoint; descriptor products stay f32)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to evaluate on (default: the card)")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="the launch's process count, checked (default: "
+                        "whatever torchrun started)")
     args = p.parse_args(argv)
+
+    maybe_init_distributed(device=args.device)
 
     cfg = EvalConfig(
         data=DataConfig(
@@ -69,7 +80,8 @@ def main(argv=None):
         num_clusters=args.num_clusters, arch=args.arch,
         compute_dtype="bfloat16" if args.bf16 else "float32",
     )
-    return run_eval(cfg, device=args.device)
+    return run_eval(cfg, device=args.device,
+                    mesh=get_mesh(args.n_devices, device=args.device))
 
 
 if __name__ == "__main__":

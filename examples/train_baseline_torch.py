@@ -21,6 +21,7 @@ from openibl_tpu_torch.config import DataConfig, TrainConfig  # noqa: E402
 from openibl_tpu_torch.engine.pipeline import (  # noqa: E402
     run_baseline_training,
 )
+from openibl_tpu_torch.parallel.mesh import world_size  # noqa: E402
 from openibl_tpu_torch.utils import Logger, resolve_device  # noqa: E402
 
 
@@ -69,18 +70,18 @@ def main(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 backbone compute")
     p.add_argument("--device-jitter", action="store_true",
-                   help="ColorJitter on the device (not ported yet: "
-                        "ROADMAP Queue 1 item 11)")
+                   help="ColorJitter on the device (raw uint8 tuples, the "
+                        "jitter seeded per epoch, subset and step)")
     p.add_argument("--n-devices", type=int, default=None,
                    help="more than one device is not ported yet (ROADMAP "
-                        "Queue 1 item 12)")
+                        "Queue 1 item 12b)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (default: the card)")
     args = p.parse_args(argv)
 
-    if args.n_devices is not None and args.n_devices > 1:
-        raise SystemExit("--n-devices > 1: multi-GPU training is not ported "
-                         "yet (ROADMAP Queue 1 item 12)")
+    if (args.n_devices or 1) > 1 or world_size() > 1:
+        raise SystemExit("more than one device: multi-GPU training is not "
+                         "ported yet (ROADMAP Queue 1 item 12b)")
     device = resolve_device(args.device)
     cfg = TrainConfig(
         data=DataConfig(

@@ -22,6 +22,7 @@ from openibl_tpu_torch.config import DataConfig, SFRSConfig  # noqa: E402
 from openibl_tpu_torch.engine.pipeline import (  # noqa: E402
     run_sfrs_training,
 )
+from openibl_tpu_torch.parallel.mesh import world_size  # noqa: E402
 from openibl_tpu_torch.utils import Logger, resolve_device  # noqa: E402
 
 
@@ -77,13 +78,17 @@ def main(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 backbone compute")
     p.add_argument("--device-jitter", action="store_true",
-                   help="ColorJitter on the device (not ported yet: "
-                        "ROADMAP Queue 1 item 11)")
+                   help="ColorJitter on the device (raw uint8 tuples, the "
+                        "jitter seeded per generation, epoch, subset and "
+                        "step)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (default: the card)")
     args = p.parse_args(argv)
     if not args.vlad:
         p.error("SFRS region similarities require the VLAD head (--vlad)")
+    if world_size() > 1:
+        raise SystemExit("more than one process: multi-GPU training is not "
+                         "ported yet (ROADMAP Queue 1 item 12b)")
 
     device = resolve_device(args.device)
     cfg = SFRSConfig(

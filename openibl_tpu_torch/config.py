@@ -52,7 +52,7 @@ class TrainConfig:
     print_freq: int = 10
     compute_dtype: str = "float32"  # or "bfloat16"
     remat: bool = False  # recompute backbone activations in the backward
-    device_jitter: bool = False  # ColorJitter on the device: ROADMAP item 11
+    device_jitter: bool = False  # ColorJitter on the device (ops/augment.py)
     augment: bool = True  # False disables ColorJitter (deterministic pixels)
 
     @property

@@ -15,8 +15,9 @@ and tuple order. The distances and choices run on the features' device
 ``DiffTupleSampler`` (SFRS) adds ``pos_num`` difficult positives: the
 anchor's ``pos_pool`` nearest positives, ranked on the device, of which it
 keeps those the k-reciprocal Jaccard ordering promotes (numpy, stable
-sorts). The multi-process helpers ``slice_indices`` / ``shard_tuples``
-come with multi-GPU (ROADMAP Queue 1 item 12).
+sorts). ``slice_indices`` cuts a dataset into the ranks' contiguous
+slices for sharded extraction; ``shard_tuples`` comes with the
+data-parallel step (ROADMAP Queue 1 item 12b).
 """
 
 import numpy as np
@@ -204,3 +205,13 @@ class DiffTupleSampler(TupleSampler):
         order = self.rng.permutation(len(self.tuples))
         self.tuples = [self.tuples[i] for i in order]
         return self.tuples
+
+
+def slice_indices(n, n_shards, shard):
+    """Shard ``shard``'s contiguous slice of range(n) for ``n_shards``
+    ranks, each exactly ceil(n / n_shards) rows: the tail is padded by
+    cycling the index list (``np.resize``), even when n < n_shards, so the
+    rank-ordered concatenation of the slices starts with range(n)."""
+    per = -(-n // n_shards)
+    idx = np.resize(np.arange(n), per * n_shards)
+    return idx[shard * per:(shard + 1) * per]

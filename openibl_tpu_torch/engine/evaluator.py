@@ -1,5 +1,4 @@
-"""Recall@N evaluation (port of openibl_tpu/engine/evaluator.py, single
-device).
+"""Recall@N evaluation (port of openibl_tpu/engine/evaluator.py).
 
 The kNN runs on the descriptors' device (ops.distance.topk_nearest); spatial
 NMS and the recall scan are host index math. ``Evaluator.evaluate`` scores
@@ -9,22 +8,30 @@ a query loader against a gallery loader; a bucket-padded query loader
 read their descriptors with the model's head (the fused kernel on the card)
 and keep them on its device.
 
+With a mesh of more than one rank (parallel.mesh) ``evaluate_sources``
+splits each extraction over the ranks (``extract_features_sharded``), and
+the kNN pads the gallery to a multiple of the world size and searches it
+sharded (``topk_nearest_sharded``); NMS, the rerank and the recall scan
+run on the gathered results, the same on every rank.
+
 ``rerank=True`` adds the k-reciprocal rerank (ops.rerank, k2=1): up to
 ``_RERANK_DISTMAT_BUDGET_BYTES`` the three distance matrices are computed
 on the descriptors' device and reranked on the host (``re_ranking``);
 above it ``rerank_ranks_streaming`` computes the same ranking from the
 descriptors. Both order by ``composite_rank_key``, so the two sides of the
-threshold agree. The mesh-sharded kNN comes with ROADMAP Queue 1 item 12.
+threshold agree.
 """
 
 import numpy as np
 import torch
 
-from openibl_tpu_torch.data.loader import BatchLoader
-from openibl_tpu_torch.ops.distance import pairwise_sqdist, topk_nearest
+from openibl_tpu_torch.ops.distance import (pairwise_sqdist, topk_nearest,
+                                            topk_nearest_sharded)
 from openibl_tpu_torch.ops.rerank import (composite_rank_key, re_ranking,
                                           rerank_ranks_streaming)
-from openibl_tpu_torch.parallel.extract import extract_features
+from openibl_tpu_torch.parallel.extract import (extract_features,
+                                                extract_features_sharded)
+from openibl_tpu_torch.parallel.mesh import process_local_mesh
 from openibl_tpu_torch.utils import f32_precision, to_numpy
 from openibl_tpu_torch.utils.profiling import PhaseTimer
 
@@ -103,24 +110,37 @@ def rerank_order(q_feats, g_feats, k_need, rr_topk=25, lambda_value=0):
 
 def evaluate_descriptors(q_feats, g_feats, ground_truth, gallery_pids=None,
                          topk=(1, 5, 10), nms=False, rerank=False,
-                         rr_topk=25, lambda_value=0, print_results=True):
+                         rr_topk=25, lambda_value=0, print_results=True,
+                         mesh=None):
     """Recall@topk from query and gallery descriptors (tensors on any one
     device, or numpy arrays, searched on the CPU); with ``rerank`` the
-    k-reciprocal reranked recalls are returned (both are printed)."""
+    k-reciprocal reranked recalls are returned (both are printed).
+
+    With a ``mesh`` of more than one rank, every rank passes the whole
+    descriptors; the gallery is padded to a multiple of the world size with
+    rows of 1e3 (far from any unit-norm query) and searched sharded on the
+    ranks' devices."""
     _refuse(nms, gallery_pids)  # before the kNN
     k_need = max(topk) * (12 if nms else 1)
     g = torch.as_tensor(g_feats)
+    k = min(k_need, g.shape[0])
     with f32_precision():  # the JAX kNN's Precision.HIGHEST
-        _, idx = topk_nearest(torch.as_tensor(q_feats), g,
-                              k=min(k_need, g.shape[0]))
+        if mesh is not None and mesh.size > 1:
+            pad = (-len(g)) % mesh.size
+            if pad:
+                g = torch.cat([g.float(), torch.full(
+                    (pad, g.shape[1]), 1e3, device=g.device)])
+            _, idx = topk_nearest_sharded(q_feats, g, mesh, k=k)
+        else:
+            _, idx = topk_nearest(torch.as_tensor(q_feats), g, k=k)
     recalls = recalls_from_ranks(to_numpy(idx), ground_truth, gallery_pids,
                                  topk, nms)
     if print_results:
         _print_recalls(recalls, topk)
     if not rerank:
         return recalls
-    return reranked_recalls(q_feats, g, ground_truth, gallery_pids, topk,
-                            nms, rr_topk, lambda_value, print_results)
+    return reranked_recalls(q_feats, g_feats, ground_truth, gallery_pids,
+                            topk, nms, rr_topk, lambda_value, print_results)
 
 
 def reranked_recalls(q_feats, g_feats, ground_truth, gallery_pids=None,
@@ -142,22 +162,37 @@ class Evaluator:
     forward (e.g. ``model.forward_masked``); evaluates loaders or image
     sources end to end. Each evaluation's query pass, gallery pass, kNN and
     rerank are phases of ``timer`` ("query", "gallery", "knn", "rerank"; a
-    ``PhaseTimer`` of its own by default)."""
+    ``PhaseTimer`` of its own by default). With a ``mesh`` (the model on
+    its rank's device) the kNN is sharded over its ranks and
+    ``evaluate_sources`` splits the extractions over them."""
 
     def __init__(self, model, feature="vlad", masked_apply_fn=None,
-                 timer=None):
+                 timer=None, mesh=None):
         self.model = model
         self.feature = feature
         self.masked_apply_fn = masked_apply_fn
         self.timer = timer if timer is not None else PhaseTimer()
+        self.mesh = mesh
 
     def extract(self, loader, pca=None, verbose=False):
         """Descriptors of every item ``loader`` yields, in ascending index
-        order, kept on the model's device."""
-        return extract_features(self.model, loader, pca=pca,
+        order, kept on the model's device (every rank extracts them all, on
+        its own sub-mesh)."""
+        return extract_features(self.model, loader,
+                                mesh=process_local_mesh(self.mesh), pca=pca,
                                 feature=self.feature, verbose=verbose,
                                 masked_apply_fn=self.masked_apply_fn,
                                 device_output=True)
+
+    def extract_sharded(self, source, pca=None, batch_size=32, prefetch=2,
+                        verbose=False):
+        """Descriptors of every item of ``source``, in dataset order, on
+        every rank, each rank extracting its slice
+        (``extract_features_sharded``)."""
+        return extract_features_sharded(
+            self.model, source, batch_size=batch_size, mesh=self.mesh,
+            pca=pca, feature=self.feature, verbose=verbose,
+            prefetch=prefetch, device_output=True)
 
     def evaluate(self, query_loader, gallery_loader, ground_truth,
                  gallery_pids=None, pca=None, topk=(1, 5, 10), nms=False,
@@ -171,10 +206,18 @@ class Evaluator:
             q_feats = self.extract(query_loader, pca=pca, verbose=verbose)
         with self.timer.phase("gallery"):
             g_feats = self.extract(gallery_loader, pca=pca, verbose=verbose)
+        return self.score(q_feats, g_feats, ground_truth, gallery_pids, topk,
+                          nms, rerank, rr_topk, lambda_value, print_results)
+
+    def score(self, q_feats, g_feats, ground_truth, gallery_pids=None,
+              topk=(1, 5, 10), nms=False, rerank=False, rr_topk=25,
+              lambda_value=0, print_results=True):
+        """The kNN (sharded over the mesh's ranks) and, when asked, the
+        rerank of extracted descriptors, each a phase."""
         with self.timer.phase("knn"):
             recalls = evaluate_descriptors(
                 q_feats, g_feats, ground_truth, gallery_pids, topk=topk,
-                nms=nms, print_results=print_results)
+                nms=nms, print_results=print_results, mesh=self.mesh)
         if not rerank:
             return recalls
         with self.timer.phase("rerank"):
@@ -187,11 +230,14 @@ class Evaluator:
                          prefetch=2, topk=(1, 5, 10), nms=False,
                          rerank=False, rr_topk=25, lambda_value=0,
                          verbose=False, print_results=True):
-        """``evaluate`` over fixed-shape ``BatchLoader``s of two image
-        sources."""
-        return self.evaluate(
-            *(BatchLoader(src, batch_size=batch_size, prefetch=prefetch)
-              for src in (q_source, db_source)),
-            ground_truth, gallery_pids, pca=pca, topk=topk, nms=nms,
-            rerank=rerank, rr_topk=rr_topk, lambda_value=lambda_value,
-            verbose=verbose, print_results=print_results)
+        """``evaluate`` over two fixed-shape image sources, each extraction
+        split over the mesh's ranks (``extract_sharded``)."""
+        _refuse(nms, gallery_pids)  # before the extraction
+        feats = []
+        for phase, src in (("query", q_source), ("gallery", db_source)):
+            with self.timer.phase(phase):
+                feats.append(self.extract_sharded(
+                    src, pca=pca, batch_size=batch_size, prefetch=prefetch,
+                    verbose=verbose))
+        return self.score(*feats, ground_truth, gallery_pids, topk, nms,
+                          rerank, rr_topk, lambda_value, print_results)

@@ -33,13 +33,19 @@ training through the eager head. Checkpoints
 (the JAX package's optax layout), the teacher and the negative cache, so
 either package resumes the other's run mid-generation.
 
-``run_eval`` evaluates a checkpoint (port of the JAX package's
-``run_eval``, one device): fixed-shape query and gallery passes through
-K1, or for Tokyo 24/7 bucket-padded queries through the masked forward
-(eager head) and the gallery through K1; PCA-whitening loaded or fitted on
-demand; spatial NMS; the k-reciprocal rerank.
+With ``device_jitter`` the tuples arrive as raw uint8 and ColorJitter runs
+on the device, each step's draws from a generator keyed by (seed, epoch,
+subset, step), (seed, generation, epoch, subset, step) in SFRS, where the
+JAX package folds its key: a resumed run draws the same pixels.
 
-Multi-GPU and on-device jitter come with ROADMAP Queue 1 items 12 and 11.
+``run_eval`` evaluates a checkpoint (port of the JAX package's
+``run_eval``): fixed-shape query and gallery passes through K1, or for
+Tokyo 24/7 bucket-padded queries through the masked forward (eager head)
+and the gallery through K1; PCA-whitening loaded or fitted on demand;
+spatial NMS; the k-reciprocal rerank. With a mesh (parallel.mesh) the
+extractions and the kNN are split over its ranks.
+
+The data-parallel training step comes with ROADMAP Queue 1 item 12b.
 """
 
 import os
@@ -63,7 +69,8 @@ from openibl_tpu_torch.ops import pca as pca_ops
 from openibl_tpu_torch.ops.distance import pairwise_sqdist
 from openibl_tpu_torch.ops.kmeans import kmeans
 from openibl_tpu_torch.ops.rerank import build_v_sparse, jaccard_for_queries
-from openibl_tpu_torch.parallel.extract import extract_features
+from openibl_tpu_torch.parallel.extract import extract_features_sharded
+from openibl_tpu_torch.parallel.mesh import run_device
 from openibl_tpu_torch.utils import (array_file, f32_precision, read_arrays,
                                      resolve_device, to_numpy, write_arrays)
 from openibl_tpu_torch.utils.checkpoint import (
@@ -239,13 +246,13 @@ def _subset_splits(n_query, cache_size, epoch, step_size, seed,
     return [np.sort(perm[s : s + size]) for s in range(0, n_query, size)]
 
 
-def _extract(model, source, cfg, feature, indices=None, pca=None):
+def _extract(model, source, cfg, feature, indices=None, pca=None,
+             mesh=None):
     """Descriptors of ``source`` (rows in ascending index order), kept on
-    the model's device."""
-    loader = BatchLoader(source, indices, cfg.data.test_batch_size,
-                         prefetch=cfg.data.workers)
-    return extract_features(model, loader, pca=pca, feature=feature,
-                            device_output=True)
+    the model's device; split over the ranks of ``mesh``."""
+    return extract_features_sharded(
+        model, source, indices, cfg.data.test_batch_size, mesh=mesh, pca=pca,
+        feature=feature, prefetch=cfg.data.workers, device_output=True)
 
 
 def _load_params(model, params):
@@ -268,7 +275,7 @@ def run_baseline_training(cfg, device="cuda", mesh=None, verbose=True,
     if mesh is not None:
         raise NotImplementedError(
             "multi-device training is not ported to openibl_tpu_torch yet: "
-            "ROADMAP Queue 1 item 12")
+            "ROADMAP Queue 1 item 12b")
     device = resolve_device(device)
     timer = timer if timer is not None else PhaseTimer(device)
     dataset = load_dataset(cfg)
@@ -328,7 +335,8 @@ def run_baseline_training(cfg, device="cuda", mesh=None, verbose=True,
             with timer.phase("train"):
                 avg_loss = trainer.train_epoch(
                     loader, print_freq=cfg.print_freq,
-                    log_prefix=f"Epoch [{epoch}-{subid}]")
+                    log_prefix=f"Epoch [{epoch}-{subid}]",
+                    rng=(cfg.seed, epoch, subid))
             if verbose:
                 print(f"Epoch [{epoch}-{subid}] avg loss {avg_loss:.4f}")
 
@@ -445,7 +453,7 @@ def run_sfrs_training(cfg, device="cuda", mesh=None, verbose=True,
     if mesh is not None:
         raise NotImplementedError(
             "multi-device training is not ported to openibl_tpu_torch yet: "
-            "ROADMAP Queue 1 item 12")
+            "ROADMAP Queue 1 item 12b")
     if len(cfg.temperature) < cfg.generations:
         raise ValueError(
             f"SFRS needs one teacher temperature per generation: got "
@@ -542,7 +550,8 @@ def run_sfrs_training(cfg, device="cuda", mesh=None, verbose=True,
                 with timer.phase("train"):
                     lh, ls = trainer.train_epoch(
                         teacher, loader, gen, print_freq=cfg.print_freq,
-                        log_prefix=f"Gen {gen} Epoch [{epoch}-{subid}]")
+                        log_prefix=f"Gen {gen} Epoch [{epoch}-{subid}]",
+                        rng=(cfg.seed, gen, epoch, subid))
                 if verbose:
                     print(f"Gen {gen} Epoch [{epoch}-{subid}] "
                           f"hard {lh:.4f} soft {ls:.4f}")
@@ -598,12 +607,13 @@ def _load_eval_weights(model, path):
     model.load_state_dict({k: v for k, v in state.items() if k in own})
 
 
-def _eval_pca(cfg, model, feature):
+def _eval_pca(cfg, model, feature, mesh=None):
     """The PCA-whitening of ``cfg``: loaded from ``cfg.pca_params`` or
     ``pca_params_<checkpoint stem>`` beside the checkpoint, else fitted on
     the train split of ``cfg.pca_dataset`` (default: Pitts30k for the
     pitts and tokyo evals, as the reference's test.py; the eval's own
-    dataset otherwise) and written there."""
+    dataset otherwise) and written there (by rank 0 of ``mesh``; the
+    extraction is split over its ranks and every rank fits the same)."""
     stem = osp.basename(cfg.checkpoint).split(".")[0] or "model"
     path = cfg.pca_params or array_file(osp.join(
         osp.dirname(cfg.checkpoint) or ".", f"pca_params_{stem}.h5"))
@@ -620,8 +630,10 @@ def _eval_pca(cfg, model, feature):
     src = ImageSource(items, pca_ds.images_dir,
                       TestTransform(cfg.data.height, cfg.data.width,
                                     device_normalize=True))
-    feats = _extract(model, src, cfg, feature)
-    return _train_pca(feats, cfg.pca_dim, cfg.whiten, path, seed=0)
+    feats = _extract(model, src, cfg, feature, mesh=mesh)
+    rank = 0 if mesh is None else mesh.rank
+    return _train_pca(feats, cfg.pca_dim, cfg.whiten,
+                      path if rank == 0 else None, seed=0)
 
 
 def run_eval(cfg, device="cuda", mesh=None, verbose=True, timer=None):
@@ -637,12 +649,15 @@ def run_eval(cfg, device="cuda", mesh=None, verbose=True, timer=None):
     through K1 on the card. ``timer`` (a ``utils.profiling.PhaseTimer``)
     gets the phases "dataset", "pca_fit", "query", "gallery", "knn" and
     "rerank".
+
+    With a ``mesh`` (``parallel.mesh.get_mesh``; its device of
+    ``device``'s type) each rank runs on its own device, the PCA fit and
+    the fixed-shape extractions are split over the ranks, the kNN is
+    sharded, and only rank 0 prints. Across ranks Tokyo's queries are
+    extracted whole on every rank (bucket-padded batches come out in an
+    order the ranks cannot reassemble) and the gallery is split.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device evaluation is not ported to openibl_tpu_torch "
-            "yet: ROADMAP Queue 1 item 12")
-    device = resolve_device(device)
+    device = run_device(device, mesh)
     timer = timer if timer is not None else PhaseTimer(device)
     with timer.phase("dataset"):
         dataset = load_dataset(cfg)
@@ -665,20 +680,32 @@ def run_eval(cfg, device="cuda", mesh=None, verbose=True, timer=None):
     pca = None
     if cfg.reduction:
         with timer.phase("pca_fit"):
-            pca = _eval_pca(cfg, model, feature)
+            pca = _eval_pca(cfg, model, feature, mesh)
 
     bs, pf = cfg.data.test_batch_size, cfg.data.workers
+    show = verbose and (mesh is None or mesh.rank == 0)
     evaluator = Evaluator(
         model, feature=feature,
-        masked_apply_fn=model.forward_masked if tokyo else None, timer=timer)
-    kwargs = dict(gallery_pids=[it[1] for it in dataset.db_test], pca=pca,
-                  nms=cfg.nms, rerank=cfg.rerank, rr_topk=cfg.rr_topk,
-                  lambda_value=cfg.lambda_value, verbose=verbose,
-                  print_results=verbose)
-    if tokyo:
+        masked_apply_fn=model.forward_masked if tokyo else None, timer=timer,
+        mesh=mesh)
+    gallery_pids = [it[1] for it in dataset.db_test]
+    scoring = dict(nms=cfg.nms, rerank=cfg.rerank, rr_topk=cfg.rr_topk,
+                   lambda_value=cfg.lambda_value, print_results=show)
+    if tokyo and (mesh is None or mesh.size == 1):
         return evaluator.evaluate(
             PaddedBatchLoader(q_src, batch_size=bs, prefetch=pf),
             BatchLoader(db_src, batch_size=bs, prefetch=pf),
-            dataset.test_pos, **kwargs)
-    return evaluator.evaluate_sources(q_src, db_src, dataset.test_pos,
-                                      batch_size=bs, prefetch=pf, **kwargs)
+            dataset.test_pos, gallery_pids, pca=pca, verbose=show, **scoring)
+    if tokyo:
+        with timer.phase("query"):
+            q_feats = evaluator.extract(
+                PaddedBatchLoader(q_src, batch_size=bs, prefetch=pf),
+                pca=pca, verbose=show)
+        with timer.phase("gallery"):
+            g_feats = evaluator.extract_sharded(
+                db_src, pca=pca, batch_size=bs, prefetch=pf, verbose=show)
+        return evaluator.score(q_feats, g_feats, dataset.test_pos,
+                               gallery_pids, **scoring)
+    return evaluator.evaluate_sources(
+        q_src, db_src, dataset.test_pos, gallery_pids, pca=pca,
+        batch_size=bs, prefetch=pf, verbose=show, **scoring)

@@ -13,10 +13,11 @@
     over ``diff``. The loss is the hard loss (gen 0: global descriptors;
     gen >= 1: each negative's hardest of its 9 regions) plus
     lambda_soft x the soft distillation loss, lambda_soft 0 at gen 0 (the
-    soft loss is still computed and reported there).
+    soft loss is still computed and reported there);
+  * with ``device_jitter`` the step jitters the whole raw tuple once on the
+    device and then splits it, so student and teacher see the same pixels.
 
-On-device ColorJitter (``device_jitter``) and the data-parallel step
-(``mesh``) come with ROADMAP Queue 1 items 11 and 12.
+The data-parallel step (``mesh``) comes with ROADMAP Queue 1 item 12b.
 """
 
 import copy
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from openibl_tpu_torch.engine.trainer import Trainer
+from openibl_tpu_torch.engine.trainer import JITTER_PARAMS, Trainer
 from openibl_tpu_torch.ops.losses import sfrs_hard_loss, sfrs_soft_loss
 from openibl_tpu_torch.utils import AverageMeter, f32_precision
 
@@ -45,10 +46,12 @@ class SFRSTrainer(Trainer):
     def __init__(self, model, loss_type="sare_ind", margin=np.sqrt(0.1),
                  temps=DEFAULT_TEMPS, soft_weight=0.5, neg_num=10,
                  lr=1e-3, momentum=0.9, weight_decay=1e-3, mesh=None,
-                 remat=False, device_jitter=False):
+                 remat=False, device_jitter=False,
+                 jitter_params=JITTER_PARAMS):
         super().__init__(model, loss_type=loss_type, margin=margin, lr=lr,
                          momentum=momentum, weight_decay=weight_decay,
-                         mesh=mesh, remat=remat, device_jitter=device_jitter)
+                         mesh=mesh, remat=remat, device_jitter=device_jitter,
+                         jitter_params=jitter_params)
         self.temps = tuple(temps)
         self.soft_weight = soft_weight
         self.neg_num = neg_num
@@ -111,14 +114,15 @@ class SFRSTrainer(Trainer):
                                        self.temps[gen])
             return loss_hard + lam * loss_soft, loss_hard, loss_soft
 
-    def step(self, teacher, images, gen):
+    def step(self, teacher, images, gen, generator=None):
         """One update on a tuple batch (T, 2+neg+pos, H, W, 3) (numpy or a
         tensor) against ``teacher``; returns (loss_hard, loss_soft) as
-        detached 0-d tensors."""
+        detached 0-d tensors. With ``device_jitter`` the batch is raw
+        resized pixels, jittered once from ``generator`` before the split
+        into the student's and the teacher's views."""
         if self.optimizer is None:
             raise RuntimeError("call init_generation() before step()")
-        dev = next(self.model.parameters()).device
-        images = torch.as_tensor(images).to(dev)
+        images = self._device_images(images, generator)
         self.optimizer.zero_grad(set_to_none=True)
         with f32_precision():
             loss, loss_hard, loss_soft = self.losses(teacher, images, gen)
@@ -128,15 +132,18 @@ class SFRSTrainer(Trainer):
         return loss_hard.detach(), loss_soft.detach()
 
     def train_epoch(self, teacher, tuple_loader, gen, print_freq=10,
-                    log_prefix=""):
+                    log_prefix="", rng=None):
         """One pass over the mined tuples; returns the mean (hard, soft)
-        losses."""
+        losses. ``rng`` (required with ``device_jitter``) keys the steps'
+        jitter streams (``step_generators``)."""
         self.lambda_soft(gen)  # refuse a generation without a temperature
+        generators = self.step_generators(rng)
         l_hard, l_soft = AverageMeter(), AverageMeter()
         batch_time = AverageMeter()
         end = time.time()
-        for i, images in enumerate(tuple_loader):
-            lh, ls = self.step(teacher, images, gen)
+        for i, (images, generator) in enumerate(zip(tuple_loader,
+                                                    generators)):
+            lh, ls = self.step(teacher, images, gen, generator)
             l_hard.update(float(lh))
             l_soft.update(float(ls))
             batch_time.update(time.time() - end)

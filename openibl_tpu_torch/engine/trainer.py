@@ -14,12 +14,15 @@ openibl_tpu/engine/trainer.py, single device).
   * the step runs in f32 (``utils.f32_precision``, TF32 off) for an f32
     backbone, forward and backward, as the JAX package's f32 step;
   * ``remat`` recomputes the backbone's activations in the backward
-    (``torch.utils.checkpoint``), the JAX package's ``jax.checkpoint``.
+    (``torch.utils.checkpoint``), the JAX package's ``jax.checkpoint``;
+  * ``device_jitter`` takes raw resized uint8 tuples and runs ColorJitter
+    on the device before the mean subtraction (``device_jitter_batch``),
+    each step's draws from a CPU ``torch.Generator``.
 
-On-device ColorJitter (``device_jitter``) and the data-parallel step
-(``mesh``) come with ROADMAP Queue 1 items 11 and 12.
+The data-parallel step (``mesh``) comes with ROADMAP Queue 1 item 12b.
 """
 
+import itertools
 import time
 import warnings
 
@@ -27,8 +30,23 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from openibl_tpu_torch.data.transforms import PIXEL_MEAN
+from openibl_tpu_torch.ops.augment import color_jitter_batch, jitter_generator
 from openibl_tpu_torch.ops.losses import tuple_loss
 from openibl_tpu_torch.utils import AverageMeter, f32_precision
+
+JITTER_PARAMS = (0.7, 0.7, 0.7, 0.5)  # the reference's ColorJitter
+
+
+def device_jitter_batch(images, generator, jitter_params=JITTER_PARAMS):
+    """(B, H, W, 3) raw 0..255 pixels → ColorJitter on their device, then
+    the mean subtraction: normalized f32 for the model's float path (which
+    subtracts no mean; its uint8 path does)."""
+    b, c, s, h = jitter_params
+    out = color_jitter_batch(images, generator, brightness=b, contrast=c,
+                             saturation=s, hue=h)
+    return out - torch.as_tensor(PIXEL_MEAN, dtype=torch.float32,
+                                 device=out.device)
 
 
 def make_optimizer(model, lr, momentum=0.9, weight_decay=1e-3):
@@ -49,15 +67,12 @@ class Trainer:
 
     def __init__(self, model, loss_type="triplet", margin=np.sqrt(0.1),
                  lr=1e-3, momentum=0.9, weight_decay=1e-3, mesh=None,
-                 use_pool_feature=False, remat=False, device_jitter=False):
+                 use_pool_feature=False, remat=False, device_jitter=False,
+                 jitter_params=JITTER_PARAMS):
         if mesh is not None:
             raise NotImplementedError(
                 "the data-parallel train step is not ported to "
-                "openibl_tpu_torch yet: ROADMAP Queue 1 item 12")
-        if device_jitter:
-            raise NotImplementedError(
-                "on-device ColorJitter is not ported to openibl_tpu_torch "
-                "yet: ROADMAP Queue 1 item 11")
+                "openibl_tpu_torch yet: ROADMAP Queue 1 item 12b")
         if model.net_vlad.fused:
             raise ValueError("train through the eager NetVLAD head: the "
                              "fused kernel serves no-grad extraction "
@@ -67,6 +82,8 @@ class Trainer:
         self.margin = float(margin)
         self.use_pool_feature = use_pool_feature  # trains on raw pool_x
         self.remat = remat
+        self.device_jitter = device_jitter
+        self.jitter_params = tuple(jitter_params)
         self.base_lr = lr
         self.momentum = momentum
         self.weight_decay = weight_decay
@@ -91,13 +108,28 @@ class Trainer:
         # the pool path trains on the raw pool output, as the reference
         return pool_x if self.use_pool_feature else vlad_x
 
-    def step(self, images):
-        """One update on a tuple batch (T, 2+neg, H, W, 3), a numpy array
-        or tensor; returns the loss (a detached 0-d tensor)."""
-        if self.optimizer is None:
-            raise RuntimeError("call init() before step()")
+    def _device_images(self, images, generator):
+        """A tuple batch on the model's device; with ``device_jitter``
+        jittered and normalized there from ``generator``'s draws."""
         dev = next(self.model.parameters()).device
         images = torch.as_tensor(images).to(dev)
+        if not self.device_jitter:
+            return images
+        if generator is None:
+            raise ValueError("a device_jitter trainer needs a generator")
+        t, g = images.shape[:2]
+        flat = images.reshape((t * g,) + images.shape[2:])
+        return device_jitter_batch(flat, generator,
+                                   self.jitter_params).reshape(images.shape)
+
+    def step(self, images, generator=None):
+        """One update on a tuple batch (T, 2+neg, H, W, 3), a numpy array
+        or tensor; returns the loss (a detached 0-d tensor). With
+        ``device_jitter`` the batch is raw resized pixels and ``generator``
+        (a CPU ``torch.Generator``) drives the jitter."""
+        if self.optimizer is None:
+            raise RuntimeError("call init() before step()")
+        images = self._device_images(images, generator)
         t, g = images.shape[:2]
         flat = images.reshape((t * g,) + tuple(images.shape[2:]))
         self.optimizer.zero_grad(set_to_none=True)
@@ -142,12 +174,27 @@ class Trainer:
                 self.optimizer.state[p]["momentum_buffer"] = torch.as_tensor(
                     buffers[name]).to(p).clone()
 
-    def train_epoch(self, tuple_loader, print_freq=10, log_prefix=""):
-        """One pass over the mined tuples; returns the mean loss."""
+    def step_generators(self, rng):
+        """Step i's jitter generator from the key ``rng`` (a tuple of
+        integers, e.g. (seed, epoch, subset)): ``jitter_generator(*rng,
+        i)``, so a resumed epoch draws the pixels of an uninterrupted run.
+        None for every step without ``device_jitter``."""
+        if not self.device_jitter:
+            return itertools.repeat(None)
+        if rng is None:
+            raise ValueError("device_jitter training needs rng")
+        return (jitter_generator(*rng, i) for i in itertools.count())
+
+    def train_epoch(self, tuple_loader, print_freq=10, log_prefix="",
+                    rng=None):
+        """One pass over the mined tuples; returns the mean loss. ``rng``
+        (required with ``device_jitter``) keys the steps' jitter streams
+        (``step_generators``)."""
         losses, batch_time = AverageMeter(), AverageMeter()
         end = time.time()
-        for i, images in enumerate(tuple_loader):
-            losses.update(float(self.step(images)))
+        for i, (images, gen) in enumerate(zip(tuple_loader,
+                                              self.step_generators(rng))):
+            losses.update(float(self.step(images, gen)))
             batch_time.update(time.time() - end)
             end = time.time()
             if (i + 1) % print_freq == 0:

@@ -12,8 +12,10 @@ over the whole gallery (the k-reciprocal rerank's row normalization).
 negatives from one f32 (S, G) distance matrix, with TF32 off as the JAX
 package's ``Precision.HIGHEST`` asks; ``rank_positives`` orders each
 anchor's positives nearest first, and ``mine_hard_tuples_ranked`` does
-both from one shared matrix (the SFRS refresh). The mesh-sharded search
-comes with multi-GPU (ROADMAP Queue 1 item 12).
+both from one shared matrix (the SFRS refresh). ``topk_nearest_sharded``
+splits the gallery over the ranks of a mesh (parallel.mesh): each rank
+searches its rows and one all-gather of (distance, index) candidates
+merges them.
 """
 
 import os
@@ -21,6 +23,7 @@ import os
 import numpy as np
 import torch
 
+from openibl_tpu_torch.parallel.mesh import all_gather_rows
 from openibl_tpu_torch.utils import f32_precision
 
 
@@ -96,6 +99,13 @@ def _smallest(d, k):
     return torch.topk(d, k, dim=1, largest=False, sorted=True)
 
 
+def _merge_topk(dist_a, idx_a, dist_b, idx_b, k):
+    """Merge two top-k candidate sets (rowwise), keeping the k smallest."""
+    d = torch.cat([dist_a, dist_b], dim=1)
+    best_d, pos = _smallest(d, min(k, d.shape[1]))
+    return best_d, torch.gather(torch.cat([idx_a, idx_b], dim=1), 1, pos)
+
+
 def topk_nearest(query, gallery, k, chunk=None, full_path=None,
                  return_rowmax=False, gallery_scale=None,
                  gallery_sqnorm=None):
@@ -149,14 +159,54 @@ def topk_nearest(query, gallery, k, chunk=None, full_path=None,
         td, ti = _smallest(d, min(k, tile.shape[0]))
         ti = ti + s
         if best_d is not None:
-            td = torch.cat([best_d, td], dim=1)
-            ti = torch.cat([best_i, ti], dim=1)
-            td, pos = _smallest(td, min(k, td.shape[1]))
-            ti = torch.gather(ti, 1, pos)
+            td, ti = _merge_topk(best_d, best_i, td, ti, k)
         best_d, best_i = td, ti
     if return_rowmax:
         return best_d, best_i, best_m
     return best_d, best_i
+
+
+def topk_nearest_sharded(query, gallery, mesh, k, chunk=None,
+                         gallery_scale=None, gallery_sqnorm=None):
+    """k nearest neighbours with the gallery sharded over the ranks of
+    ``mesh`` (parallel.mesh.Mesh).
+
+    ``gallery`` (G, D) is the same on every rank (numpy or a tensor on any
+    device), G a multiple of the world size: rank r moves rows
+    [r·G/n, (r+1)·G/n) to its device and runs ``topk_nearest`` over them
+    (k and ``chunk`` capped at G/n). The per-rank (Q, k) candidates, their
+    indices made global, are all-gathered and the k smallest kept, so no
+    rank holds more than G/n rows or ever forms Q x G.
+    ``gallery_scale`` (int8 rows) and ``gallery_sqnorm`` (G,) are sharded
+    like the gallery. Returns (dists (Q, k), global indices (Q, k)) on
+    ``mesh.device``, the same on every rank.
+    """
+    g_total = gallery.shape[0]
+    if g_total % mesh.size:
+        raise ValueError(f"gallery size {g_total} not divisible by "
+                         f"{mesh.size}")
+    per = g_total // mesh.size
+    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+    def shard(a):
+        return None if a is None else torch.as_tensor(a[rows]).to(
+            mesh.device)
+
+    d, idx = topk_nearest(
+        torch.as_tensor(query).to(mesh.device), shard(gallery),
+        k=min(k, per), chunk=None if chunk is None else min(chunk, per),
+        gallery_scale=shard(gallery_scale),
+        gallery_sqnorm=shard(gallery_sqnorm))
+    idx = idx + mesh.rank * per
+    q_n, k_local = d.shape
+
+    def across_ranks(x):  # (Q, k_local) per rank → (Q, n · k_local)
+        x = all_gather_rows(mesh, x).reshape(mesh.size, q_n, k_local)
+        return x.permute(1, 0, 2).reshape(q_n, -1)
+
+    d_all = across_ranks(d)
+    best_d, pos = _smallest(d_all, min(k, d_all.shape[1]))
+    return best_d, torch.gather(across_ranks(idx), 1, pos)
 
 
 def _pos_distances(d2, pos_idx):

@@ -29,7 +29,7 @@ k-means++ come from a ``torch.Generator``: they cannot reproduce
 for one seed while meeting the same quality gates. Products are f32 (the
 JAX package's ``Precision.HIGHEST``), with TF32 off as PyTorch's default.
 The mesh-sharded ``pq_search_sharded`` is not ported (ROADMAP Queue 1
-item 12).
+item 12c).
 """
 
 import numpy as np

@@ -1,16 +1,21 @@
-"""Descriptor extraction over a batch loader, on one device (port of
-openibl_tpu/parallel/extract.py:extract_features).
+"""Descriptor extraction over a batch loader (port of
+openibl_tpu/parallel/extract.py).
 
 ``pca`` (an ``ops.pca.PCA``) projects and re-normalizes each batch on the
 device, as the JAX package's extraction does. Bucket-padded batches of a
 ``PaddedBatchLoader`` go through ``masked_apply_fn`` (e.g.
-``EmbedNet.forward_masked``). The mesh-sharded extraction comes with
-multi-GPU (ROADMAP Queue 1 item 12).
+``EmbedNet.forward_masked``). ``extract_features_sharded`` splits a source
+over the ranks of a mesh (parallel.mesh): each rank extracts its
+contiguous slice on its device and the rows are all-gathered in rank
+order, the reference's DistributedSliceSampler and gather.
 """
 
 import numpy as np
 import torch
 
+from openibl_tpu_torch.data.loader import BatchLoader
+from openibl_tpu_torch.data.sampler import slice_indices
+from openibl_tpu_torch.parallel.mesh import all_gather_rows
 from openibl_tpu_torch.utils import l2_normalize
 
 
@@ -39,9 +44,12 @@ def extract_features(model, loader, mesh=None, pca=None, feature="vlad",
     """Extract descriptors for every item the loader yields.
 
     ``model`` is a torch module (e.g. hub.vgg16_netvlad) and runs on its
-    parameters' device; ``loader`` yields (images (B, H, W, 3), indices,
-    count) (the BatchLoader contract) or (images, valid_hw, indices, count)
-    (the PaddedBatchLoader contract), which goes through
+    parameters' device, which must be ``mesh.device`` when a mesh is given
+    (each rank then extracts all the loader yields;
+    ``extract_features_sharded`` splits a source over the ranks).
+    ``loader`` yields (images (B, H, W, 3), indices, count) (the
+    BatchLoader contract) or (images, valid_hw, indices, count) (the
+    PaddedBatchLoader contract), which goes through
     ``masked_apply_fn(images, valid_hw)`` (e.g. ``model.forward_masked``).
     Returns (N, D) numpy ordered by ascending loader index (``sort=True``)
     or in emission order.
@@ -51,16 +59,15 @@ def extract_features(model, loader, mesh=None, pca=None, feature="vlad",
     index build consumes the features with no host round trip. Needs a
     loader with ``.indices`` (BatchLoader, PaddedBatchLoader) to size it.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded extraction is not ported to openibl_tpu_torch yet: "
-            "ROADMAP Queue 1 item 12")
+    dev = next(model.parameters()).device
+    if mesh is not None and dev != mesh.device:
+        raise ValueError(f"the model is on {dev}, the mesh's rank on "
+                         f"{mesh.device}")
     fwd = make_extract_fn(model, feature=feature, pca=pca)
     fwd_masked = None
     if masked_apply_fn is not None:
         fwd_masked = make_extract_fn(masked_apply_fn, feature=feature,
                                      pca=pca)
-    dev = next(model.parameters()).device
     if device_output:
         if not hasattr(loader, "indices"):
             raise ValueError(
@@ -110,3 +117,33 @@ def extract_features(model, loader, mesh=None, pca=None, feature="vlad",
         return feats
     order = np.concatenate(orders)
     return feats[np.argsort(order, kind="stable")]  # ascending dataset order
+
+
+def extract_features_sharded(model, source, indices=None, batch_size=32,
+                             mesh=None, pca=None, feature="vlad",
+                             verbose=False, prefetch=2, device_output=False):
+    """Descriptors of ``source``'s items ``indices`` (default: all), in
+    dataset order, on every rank of ``mesh``.
+
+    World size 1 (or no mesh): one plain pass, ``device_output`` as in
+    ``extract_features``. Across ranks: each extracts its contiguous
+    ``slice_indices`` slice in emission order (the wrap-around padding
+    makes index-sorted order wrong there), the ranks all-gather the rows
+    on their devices, and every rank keeps the first ``len(indices)``: a
+    tensor on ``mesh.device`` with ``device_output``, numpy otherwise."""
+    indices = np.arange(len(source)) if indices is None \
+        else np.asarray(indices)
+    if mesh is None or mesh.size == 1:
+        return extract_features(
+            model, BatchLoader(source, indices, batch_size,
+                               prefetch=prefetch),
+            mesh=mesh, pca=pca, feature=feature, verbose=verbose,
+            device_output=device_output)
+    mine = slice_indices(len(indices), mesh.size, mesh.rank)
+    loader = BatchLoader(source, indices[mine], batch_size,
+                         prefetch=prefetch)
+    local = extract_features(model, loader, mesh=mesh, pca=pca,
+                             feature=feature, verbose=verbose, sort=False,
+                             device_output=True)
+    feats = all_gather_rows(mesh, local)[:len(indices)]
+    return feats if device_output else feats.cpu().numpy()

@@ -148,7 +148,7 @@ class RetrievalService:
         noise-derived maxima and clip.
       device: where the model and the index live: the card by default;
         without one this raises unless ``device="cpu"``.
-      mesh: not ported (ROADMAP Queue 1 item 12).
+      mesh: not ported (ROADMAP Queue 1 item 12c).
     """
 
     def __init__(self, index, weights=None, height=480, width=640,
@@ -160,7 +160,7 @@ class RetrievalService:
             with np.load(index, allow_pickle=False) as data:
                 index = {k: data[k] for k in data.files}
         if mesh is not None:
-            _not_ported("mesh-sharded serving", 12)
+            _not_ported("mesh-sharded serving", "12c")
         self.paths = [str(p) for p in index.get("paths", [])]
         self.pq_rerank = int(pq_rerank)
         self.ivf_nprobe = int(ivf_nprobe)

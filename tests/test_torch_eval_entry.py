@@ -44,6 +44,7 @@ from openibl_tpu_torch import models  # noqa: E402
 from openibl_tpu_torch.config import DataConfig, EvalConfig  # noqa: E402
 from openibl_tpu_torch.engine import evaluator, pipeline  # noqa: E402
 from openibl_tpu_torch.models import convert  # noqa: E402
+from openibl_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from openibl_tpu_torch.utils import serialization  # noqa: E402
 from openibl_tpu_torch.utils.profiling import PhaseTimer  # noqa: E402
 from tests.test_mat_parsers import (  # noqa: E402
@@ -56,6 +57,14 @@ RTOL, ATOL = 1e-4, 1e-5
 # query sizes (w, h): both orientations, odd extents
 Q_SIZES = [(36, 48), (48, 36), (40, 48), (48, 30), (37, 50), (50, 37),
            (33, 47), (47, 33)]
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """Each test's directory, freed when the test ends: the checkpoints
+    written here run to hundreds of MB, and pytest would keep them."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _scene(rng, w, h):
@@ -157,7 +166,8 @@ def world(tmp_path_factory):
     jcheckpoint.save_checkpoint(ckpt, {"params": _jax_params()},
                                 {"epoch": 0})
     shutil.copytree(tmp / "port" / "ckpt", tmp / "jax" / "ckpt")
-    return tmp, ckpt, {}  # the last: recalls of the .npz runs
+    yield tmp, ckpt, {}  # the last: recalls of the .npz runs
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _cfgs(world, dataset, **kw):
@@ -294,7 +304,7 @@ def test_run_eval_refuses_a_checkpoint_that_lacks_tensors(world, tmp_path):
 
 
 @pytest.mark.parametrize("kw,exc,item", [
-    (dict(mesh=object()), NotImplementedError, "item 12"),
+    (dict(mesh=Mesh(torch.device("meta"))), ValueError, "mesh's device"),
 ], ids=["mesh"])
 def test_run_eval_refuses_unported_paths(world, kw, exc, item):
     cfg, _ = _cfgs(world, "tokyo", **kw.get("cfg", {}))

@@ -15,6 +15,7 @@ near-ties within it (``_assert_same_matches``).
 """
 
 import os.path as osp
+import shutil
 import subprocess
 import sys
 
@@ -77,8 +78,9 @@ def world(tmp_path_factory):
     for name, pkg in (("jax", (jpq, jivf)), ("port", (tpq, tivf))):
         files[name] = str(tmp / f"{name}_index.npz")
         np.savez(files[name], **_index(pkg, gallery))
-    return {"weights": weights, "images": images, "gallery": gallery,
-            "desc": desc, "files": files, "tmp": tmp}
+    yield {"weights": weights, "images": images, "gallery": gallery,
+           "desc": desc, "files": files, "tmp": tmp}
+    shutil.rmtree(tmp, ignore_errors=True)  # a full-width .npz each
 
 
 def _service(world, cls, builder, mode):
@@ -201,6 +203,7 @@ def test_extract_features_matches_the_jax_model(world):
     from openibl_tpu_torch.data.transforms import TestTransform
     from openibl_tpu_torch.hub import vgg16_netvlad
     from openibl_tpu_torch.parallel.extract import extract_features
+    from openibl_tpu_torch.parallel.mesh import Mesh, get_mesh
 
     folder = world["tmp"] / "extract"
     _write_pngs(folder, world["images"])
@@ -214,8 +217,11 @@ def test_extract_features_matches_the_jax_model(world):
     assert isinstance(on_dev, torch.Tensor) and on_dev.shape == (5, 4096)
     np.testing.assert_array_equal(on_dev.numpy(), feats)
     np.testing.assert_allclose(feats, world["desc"], atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        extract_features(model, loader, mesh=object())
+    mesh = get_mesh(device="cpu")  # one rank: the model's own device
+    np.testing.assert_array_equal(extract_features(model, loader, mesh=mesh),
+                                  feats)
+    with pytest.raises(ValueError, match="the mesh's rank"):
+        extract_features(model, loader, mesh=Mesh(torch.device("meta")))
 
 
 def test_index_and_query_torch_cli_builds_an_index_jax_serves(world):

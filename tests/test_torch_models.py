@@ -9,6 +9,7 @@ moves entries by ~1e-2.
 """
 
 import functools
+import shutil
 
 import numpy as np
 import pytest
@@ -30,6 +31,14 @@ from openibl_tpu_torch.models.convert import (  # noqa: E402
 from openibl_tpu_torch.utils.checkpoint import load_npz_tree  # noqa: E402
 
 K, PCA_DIM = 4, 16
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """Each test's directory, freed when the test ends: the checkpoints
+    written here run to hundreds of MB, and pytest would keep them."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _np_tree(tree):

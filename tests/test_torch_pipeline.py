@@ -18,6 +18,7 @@ recalls are equal.
 
 import os
 import os.path as osp
+import shutil
 
 import numpy as np
 import pytest
@@ -38,6 +39,14 @@ from openibl_tpu_torch.models.convert import (  # noqa: E402
 )
 
 K = 8
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """Each test's directory, freed when the test ends: the checkpoints
+    written here run to hundreds of MB, and pytest would keep them."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _cfg(cls, data_cls, tmp, logs, **kw):

@@ -19,6 +19,7 @@ import io
 import json
 import os.path as osp
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -656,15 +657,19 @@ def service_world(tmp_path_factory):
 
     _, params = jax_hub(None)
     params["vlad"]["centroids"] = params["vlad"]["centroids"] * 0.01
-    weights = str(tmp_path_factory.mktemp("w") / "model.npz")
+    wdir = tmp_path_factory.mktemp("w")
+    weights = str(wdir / "model.npz")
     save_checkpoint(weights, params)
     rng = np.random.RandomState(7)
     gallery = rng.randn(16, 4096).astype(np.float32)
     gallery /= np.linalg.norm(gallery, axis=1, keepdims=True)
-    return {"weights": weights, "gallery": gallery,
-            "calib": rng.randint(0, 256, (4, 32, 48, 3)).astype(np.uint8),
-            "queries": rng.randint(0, 256, (3, 32, 48, 3)).astype(np.uint8),
-            "tmp": tmp_path_factory.mktemp("cli")}
+    tmp = tmp_path_factory.mktemp("cli")
+    yield {"weights": weights, "gallery": gallery,
+           "calib": rng.randint(0, 256, (4, 32, 48, 3)).astype(np.uint8),
+           "queries": rng.randint(0, 256, (3, 32, 48, 3)).astype(np.uint8),
+           "tmp": tmp}
+    for path in (wdir, tmp):  # the full-width .npz is ~0.6 GB
+        shutil.rmtree(path, ignore_errors=True)
 
 
 def test_quant_service_ranks_like_the_jax_quant_service(service_world):

@@ -6,6 +6,7 @@ import importlib.util
 import io
 import json
 import os.path as osp
+import shutil
 import subprocess
 import sys
 import threading
@@ -42,7 +43,8 @@ def world(tmp_path_factory):
     # rows ~1e-5 apart, a near-tie). Shrunk, the planted rows sit ~6e-3
     # apart with gaps of >= 8e-5, far above the two stacks' ~1e-6 drift.
     params["vlad"]["centroids"] = params["vlad"]["centroids"] * 0.01
-    weights = str(tmp_path_factory.mktemp("w") / "model.npz")
+    wdir = tmp_path_factory.mktemp("w")
+    weights = str(wdir / "model.npz")
     save_checkpoint(weights, params)
     images = rng.randint(0, 256, (len(PLANTED), H, W, 3)).astype(np.uint8)
     gallery = rng.randn(16, 4096).astype(np.float32)
@@ -56,8 +58,9 @@ def world(tmp_path_factory):
     ours = RetrievalService(index, device="cpu", **kw)
     theirs = JaxService(index, **kw)
     ours.warmup(topk=5)
-    return {"ours": ours, "theirs": theirs, "images": images,
-            "index": index}
+    yield {"ours": ours, "theirs": theirs, "images": images,
+           "index": index}
+    shutil.rmtree(wdir, ignore_errors=True)  # the full-width .npz is ~0.6 GB
 
 
 def _ids(matches):

@@ -27,6 +27,7 @@ atol 1e-6 of its uninterrupted run.
 
 import os
 import os.path as osp
+import shutil
 import subprocess
 import sys
 
@@ -122,7 +123,8 @@ def runs(tmp_path_factory):
         out["model"], out["final"] = pipeline.run_sfrs_training(
             cfg, device="cpu", verbose=False)
     out.update(jlosses=jlosses, jmined=jmined, losses=losses, mined=mined)
-    return out
+    yield out
+    shutil.rmtree(tmp, ignore_errors=True)  # ~1.6 GB of checkpoints
 
 
 def test_sfrs_training_matches_the_jax_pipeline(runs):
@@ -237,13 +239,9 @@ def test_sfrs_refuses_what_it_cannot_run(runs, monkeypatch):
         pipeline.run_sfrs_training(
             _cfg(SFRSConfig, DataConfig, tmp, "x", use_vlad=False),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         pipeline.run_sfrs_training(_cfg(SFRSConfig, DataConfig, tmp, "x"),
                                    device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pipeline.run_sfrs_training(
-            _cfg(SFRSConfig, DataConfig, tmp, "x", device_jitter=True,
-                 augment=True), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         pipeline.run_sfrs_training(_cfg(SFRSConfig, DataConfig, tmp, "x"))

@@ -7,6 +7,7 @@ checkpoint the JAX package's load_checkpoint reads.
 
 import os
 import os.path as osp
+import shutil
 import subprocess
 import sys
 
@@ -21,6 +22,14 @@ from openibl_tpu_torch.engine import pipeline  # noqa: E402
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 K = 8
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """Each test's directory, freed when the test ends: the checkpoints
+    written here run to hundreds of MB, and pytest would keep them."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _cfg(tmp, logs, **kw):
@@ -59,12 +68,8 @@ def test_resume_continues_the_run(tmp_path):
 
 def test_pipeline_refuses_unported_paths(tmp_path):
     cfg = _cfg(tmp_path, "logs")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         pipeline.run_baseline_training(cfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pipeline.run_baseline_training(
-            _cfg(tmp_path, "logs",
-                 device_jitter=True, augment=True), device="cpu")
 
 
 def test_no_card_raises_before_any_work(tmp_path, monkeypatch):

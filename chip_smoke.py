@@ -84,6 +84,18 @@ the unsharded ones, run_eval(mesh=) on the Tokyo root against run_eval,
 the all-gather's and the sharded kNN's times; the group destroyed, then
 two ranks spawned on the one card through gloo over CUDA tensors, their
 sharded extraction and kNN held to the single-process results.
+Then data-parallel training on the training phase's world: the baseline
+example (examples/train_baseline_torch.py) run in a one-rank torchrun
+environment on a free localhost port (NCCL), with the training phase's
+config, so run_baseline_training takes its mesh branch with real
+collectives; its losses, final parameters and recalls held to the
+training phase's single-process run at the training gate, K1 counted on
+it; then two gloo ranks on the one card, each one tuple of a
+tuple_size=2 batch, taking one device_jitter=True SARE-ind step and one
+SFRS gen-1 step (cuDNN off) from the same parameters, held to the
+one-process step on both tuples at the training gate and to each other
+bit for bit; each path's wall time and the gradient all-reduce's time
+(CUDA events) printed.
 Beside the served path it measures what cuDNN's TF32 (on as
 PyTorch ships it) does to an f32 descriptor at 480x640 and to the top-10
 over the 100k gallery, through the model's parts and through the entry
@@ -96,9 +108,9 @@ netvlad_init_from_clusters, as a trainer initializes it), and the PCA
 layer's bias centres the VLADs on their mean over the bootstrap images, as
 a PCA fit does, because the raw random init maps every image to nearly the
 same descriptor. Each served
-path, the training run, the SFRS run, the two Tokyo eval runs and the
-mesh's sharded extraction, sharded eval and two-rank run run with
-the kernels' launch counts set to 0 just before and read just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
+path, the training run, the SFRS run, the two Tokyo eval runs, the
+mesh's sharded extraction, sharded eval and two-rank run and the
+torchrun training run run with the kernels' launch counts set to 0 just before and read just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
 the same bits on a second run, and against its split-precision arithmetic
 run in plain PyTorch; K2 also at 3 and 17 queries. Prints timing
 lines (CUDA events, or the host clock for service.query) with the card's
@@ -1300,7 +1312,9 @@ def train_phase(dev, card, seed, tmp):
     run and read just after. Then its checks: K1 on a mining batch, the
     tuples mined from K1's descriptors against the plain head's, the
     losses, the frozen layers, one step on the card against the CPU.
-    Returns K1's launches in the run."""
+    Returns K1's launches in the run and the run itself for the mesh
+    training phase: its config, the initial parameters, the step losses,
+    the final parameters (f64 on the CPU) and the recalls."""
     import copy
 
     from openibl_tpu_torch.config import DataConfig, TrainConfig
@@ -1356,8 +1370,9 @@ def train_phase(dev, card, seed, tmp):
         launches = nk.netvlad_fused.launches  # the training path ends
     finally:
         Trainer.step = step
+    wall = time.perf_counter() - t0
     print(f"phase train: run_baseline_training in "
-          f"{time.perf_counter() - t0:.2f} s; val recall@1/5/10 "
+          f"{wall:.2f} s; val recall@1/5/10 "
           f"{[list(map(float, r)) for _, r in history]}, PCA test "
           f"recall@1/5/10 {list(map(float, final))}; K1 launches "
           f"{launches} [{card}]")
@@ -1365,6 +1380,10 @@ def train_phase(dev, card, seed, tmp):
     check(launches > 0, f"K1 launched {launches} times on the training "
                         f"path (mining, validation, PCA fit, test)")
     losses = [float(x) for x in losses]
+    single = dict(cfg=cfg, before={k: v.cpu() for k, v in before.items()},
+                  losses=losses, history=history, final=final, wall=wall,
+                  after={k: v.detach().cpu().double()
+                         for k, v in model.state_dict().items()})
     check(len(losses) == TRAIN_ITERS and all(np.isfinite(losses)),
           f"{len(losses)} train steps of {TRAIN_TS} tuples x "
           f"{2 + TRAIN_NEG} images, every loss finite: {losses}")
@@ -1511,7 +1530,7 @@ def train_phase(dev, card, seed, tmp):
           f"[{card}]")
     del m, tr, model
     torch.cuda.empty_cache()
-    return launches
+    return launches, single
 
 
 def sfrs_tuples_tie_equal(ours, theirs, qf, gf, jac, n_q, neg_num,
@@ -2638,6 +2657,282 @@ def mesh_phase(eval_tree, gallery, desc, rows, dev, card, seed, tmp):
     return launches
 
 
+def mesh_train_rank(rank, tmp, seed, device):
+    """One of the mesh training phase's two ranks on the one card
+    (``device``, e.g. "cuda"): a gloo group over its tensors (file store
+    under ``tmp``), then from the initial parameters in ``tmp`` one
+    device_jitter=True SARE-ind Trainer step and one SFRS gen-1 step
+    (cuDNN off), each on this rank's tuple of a tuple_size=2 batch, each
+    with the mesh; the all-reduce of the trained gradients timed (CUDA
+    events). Losses, trained parameters and times go to
+    ``tmp``/mesh_train<r>.npz."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from openibl_tpu_torch.parallel.mesh import all_reduce_mean_, get_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/mesh_store",
+                            rank=rank, world_size=2)
+    try:
+        mesh = get_mesh(2, device=device)
+        inputs = np.load(osp.join(tmp, "mesh_train_inputs.npz"))
+        state = torch.load(osp.join(tmp, "mesh_train_state.pt"))
+        out = {}
+        # a CPU rehearsal of this phase passes device "cpu"
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        for name, region in (("base", False), ("sfrs", True)):
+            model = mesh_train_model(state, region, mesh.device)
+            prev = torch.backends.cudnn.enabled
+            torch.backends.cudnn.enabled = not region
+            try:
+                sync()
+                t0 = time.perf_counter()
+                losses, trainer = mesh_train_step(
+                    model, region, inputs[name][rank:rank + 1], seed, mesh)
+                sync()
+                out[f"{name}:wall_s"] = time.perf_counter() - t0
+            finally:
+                torch.backends.cudnn.enabled = prev
+            out[f"{name}:losses"] = np.asarray(losses)
+            for k, p in model.named_parameters():
+                if p.requires_grad:
+                    out[f"{name}:{k}"] = p.detach().cpu().numpy()
+            grads = [torch.zeros_like(p) for p in
+                     trainer.optimizer.param_groups[0]["params"]]
+            out[f"{name}:grad_bytes"] = sum(g.numel() * g.element_size()
+                                            for g in grads)
+            out[f"{name}:all_reduce_ms"] = (
+                cuda_ms(lambda: all_reduce_mean_(mesh, grads), reps=5,
+                        warmup=1) if device == "cuda" else 0.0)
+            del model, trainer, grads
+        np.savez(osp.join(tmp, f"mesh_train{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_train_model(state, region, device):
+    """The full-width EmbedNet (K=64; the EmbedRegionNet with ``region``)
+    from ``state``, conv5 and NetVLAD trainable, on ``device``."""
+    from openibl_tpu_torch import models
+
+    model = models.create("embedregionnet" if region else "embednet",
+                          net_vlad=models.NetVLAD(num_clusters=64))
+    model.load_state_dict(state)
+    model.base.freeze("conv5")
+    return model.to(device, memory_format=torch.channels_last)
+
+
+def mesh_train_step(model, region, tuples, seed, mesh=None):
+    """One device_jitter=True step of the training phases' recipe on
+    ``tuples`` (SARE-ind, lr 1e-3; SFRS at gen 1 against a teacher copied
+    from the student): (losses, the trainer)."""
+    from openibl_tpu_torch.engine.sfrs import SFRSTrainer, make_teacher
+    from openibl_tpu_torch.engine.trainer import Trainer
+
+    kw = dict(loss_type="sare_ind", lr=1e-3, mesh=mesh, device_jitter=True)
+    if region:
+        teacher = make_teacher(model)
+        tr = SFRSTrainer(model, neg_num=SFRS_NEG, **kw)
+        tr.init_generation()
+        losses = tr.step(teacher, tuples, 1,
+                         torch.Generator().manual_seed(seed + 10))
+    else:
+        tr = Trainer(model, **kw)
+        tr.init()
+        losses = [tr.step(tuples, torch.Generator().manual_seed(seed + 9))]
+    return [float(x) for x in losses], tr
+
+
+def mesh_train_phase(dev, card, seed, tmp, single):
+    """(t) Data-parallel training on the card, on the training phase's
+    world under ``tmp``. World size 1 through NCCL:
+    examples/train_baseline_torch.py's main() in a one-rank torchrun
+    environment on a free localhost port, with the training phase's config
+    (its centroid cache), so run_baseline_training takes its mesh branch
+    with real collectives; its step losses, final parameters and recalls
+    held to the training phase's single-process run (``single``) at the
+    training gate (step_gap), K1's launches counted on the run. Then two
+    gloo ranks on the one card (NCCL refuses two ranks on one device): one
+    device_jitter=True SARE-ind step and one SFRS gen-1 step (cuDNN off)
+    at full width, each rank one tuple of a tuple_size=2 batch, held to
+    the one-process step on both tuples at the training gate, and the two
+    ranks' trained parameters bit for bit. Prints each path's wall time
+    and the all-reduce's time. Returns K1's launches on the torchrun
+    run."""
+    import multiprocessing
+    import socket
+
+    import torch.distributed as dist
+
+    from openibl_tpu_torch.data.loader import ImageSource
+    from openibl_tpu_torch.data.transforms import TestTransform
+    from openibl_tpu_torch.engine import pipeline
+    from openibl_tpu_torch.engine.trainer import Trainer
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.parallel.mesh import all_reduce_mean_, get_mesh
+
+    cfg = single["cfg"]
+    spec = importlib.util.spec_from_file_location(
+        "train_baseline_torch", osp.join(ROOT, "examples",
+                                         "train_baseline_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    argv = ["-d", "synthetic", "--data-dir", cfg.data.data_dir,
+            "--logs-dir", osp.join(tmp, "mesh_train_logs"), "--init-dir",
+            cfg.init_dir, "--height", str(H), "--width", str(W),
+            "--test-batch-size", str(N_IMG), "--loss-type", cfg.loss_type,
+            "--tuple-size", str(cfg.tuple_size), "--neg-num",
+            str(cfg.neg_num), "--iters", str(cfg.iters), "--epochs",
+            str(cfg.epochs), "--print-freq", str(cfg.print_freq), "--seed",
+            str(cfg.seed), "--n-devices", "1", "--device", dev.type]
+    _, cli_cfg = example.parse(argv)
+    same = dataclasses.replace(
+        cli_cfg, logs_dir=cfg.logs_dir,
+        data=dataclasses.replace(cli_cfg.data, scale=cfg.data.scale))
+    check(same == cfg, "the example's command line gives the training "
+                       "phase's config (its logs directory apart)")
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    losses, step = [], Trainer.step
+
+    def counted_step(self, images, generator=None):
+        losses.append(step(self, images, generator))
+        return losses[-1]
+
+    stdout = sys.stdout
+    Trainer.step = counted_step
+    t0 = time.perf_counter()
+    try:
+        nk.netvlad_fused.launches = 0  # the torchrun training path starts
+        model, final, history = example.main(argv)
+        launches = nk.netvlad_fused.launches  # ... and ends
+        wall = time.perf_counter() - t0
+        mesh = get_mesh(device=dev)
+        check(dist.get_backend() == "nccl" and (mesh.rank, mesh.size)
+              == (0, 1), f"the example joined a one-rank NCCL group on "
+                         f"{mesh.device} and trained through its mesh branch")
+        grads = [torch.zeros_like(p) for p in model.parameters()
+                 if p.requires_grad]
+        reduce_ms = cuda_ms(lambda: all_reduce_mean_(mesh, grads))
+        grad_mb = sum(g.numel() * g.element_size() for g in grads) / 2**20
+    finally:
+        Trainer.step = step
+        if sys.stdout is not stdout:  # the example's rank-0 log
+            sys.stdout.close()
+            sys.stdout = stdout
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(not dist.is_initialized(), "the NCCL process group is destroyed")
+    ours = ([float(x) for x in losses],
+            {k: v.detach().cpu().double()
+             for k, v in model.state_dict().items()})
+    gap = step_gap(ours, (single["losses"], single["after"]),
+                   single["before"])
+    check(len(ours[0]) == len(single["losses"]) and gap[0] < 1e-4
+          and gap[1][0] <= 1.0 and gap[3],
+          f"examples/train_baseline_torch.py under a one-rank torchrun "
+          f"(NCCL) == the training phase's run_baseline_training: "
+          f"{len(ours[0])} steps, losses {ours[0]} vs {single['losses']}; "
+          f"{gap_text(gap)} (gates: loss 1e-4, updates 1, parameters "
+          f"within rtol 1e-3 / atol 1e-3 of the layer's largest update)")
+    check([list(map(float, r)) for _, r in history]
+          == [list(map(float, r)) for _, r in single["history"]]
+          and list(map(float, final)) == list(map(float, single["final"])),
+          f"the same validation and PCA test Recall@1/5/10: "
+          f"{[list(map(float, r)) for _, r in history]}, "
+          f"{list(map(float, final))}")
+    check(launches > 0, f"K1 launched {launches} times on the torchrun "
+                        f"training path (mining, validation, PCA fit, test)")
+    print(f"timing mesh training world size 1 (NCCL): the example's run "
+          f"{wall:.2f} s, the training phase's run_baseline_training "
+          f"{single['wall']:.2f} s (host clock; that one the process's "
+          f"first training run); all_reduce_mean_ "
+          f"of the {len(grads)} trained gradients ({grad_mb:.2f} MiB f32) "
+          f"{reduce_ms:.4f} ms (CUDA events) [{card}]")
+    del model, grads
+
+    # two gloo ranks on the one card, each one tuple of a tuple_size=2
+    # batch, against one process on both tuples
+    dataset = pipeline.load_dataset(cfg)
+    src = ImageSource(dataset.q_train + dataset.db_train, dataset.images_dir,
+                      TestTransform(H, W, device_normalize=True))
+    inputs = {name: np.stack([src.load(i % len(src)) for i in range(2 * g)])
+              .reshape(2, g, H, W, 3) for name, g in (
+                  ("base", 2 + TRAIN_NEG), ("sfrs", 2 + SFRS_NEG + SFRS_POS))}
+    np.savez(osp.join(tmp, "mesh_train_inputs.npz"), **inputs)
+    torch.save(single["before"], osp.join(tmp, "mesh_train_state.pt"))
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_train_rank, args=(r, tmp, seed,
+                                                        dev.type))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    spawn_s = time.perf_counter() - t0
+    check(all(p.exitcode == 0 for p in procs),
+          f"two gloo ranks on the one card trained to their end: exit codes "
+          f"{[p.exitcode for p in procs]} ({spawn_s:.2f} s with start-up)")
+    outs = [dict(np.load(osp.join(tmp, f"mesh_train{r}.npz")))
+            for r in range(2)]
+    for name, region in (("base", False), ("sfrs", True)):
+        keys = [k for k in outs[0] if k.startswith(f"{name}:")
+                and k.split(":", 1)[1] in single["before"]]
+        check(all(np.array_equal(outs[0][k], outs[1][k]) for k in keys)
+              and np.array_equal(outs[0][f"{name}:losses"],
+                                 outs[1][f"{name}:losses"]),
+              f"two gloo ranks: both hold the same {len(keys)} trained "
+              f"tensors and losses after the {name} step, bit for bit")
+        model = mesh_train_model(single["before"], region, dev)
+        prev = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = not region
+        try:
+            one, _ = mesh_train_step(model, region, inputs[name], seed)
+        finally:
+            torch.backends.cudnn.enabled = prev
+        trained = {k: v.detach().cpu().double()
+                   for k, v in model.named_parameters() if v.requires_grad}
+        two = ([float(x) for x in outs[0][f"{name}:losses"]],
+               {k.split(":", 1)[1]: torch.from_numpy(outs[0][k]).double()
+                for k in keys})
+        gap = step_gap(two, (one, trained),
+                       {k: single["before"][k] for k in trained})
+        check(gap[0] < 1e-4 and gap[1][0] <= 1.0 and gap[3],
+              f"the {name} step (device_jitter=True"
+              f"{', cuDNN off' if region else ''}) on 2 gloo ranks, one "
+              f"tuple each, == one process on both tuples: losses "
+              f"{two[0]} vs {one}; {gap_text(gap)} (gates as above)")
+        print(f"timing mesh training 2 gloo ranks on one card, {name} step "
+              f"(1 tuple a rank, {H}x{W}): {outs[0][f'{name}:wall_s']:.4f} "
+              f"s on rank 0 (host clock to a synchronize, first step of "
+              f"the process); all_reduce_mean_ of the trained gradients "
+              f"({outs[0][f'{name}:grad_bytes'] / 2**20:.2f} MiB f32, "
+              f"through host memory) {outs[0][f'{name}:all_reduce_ms']:.4f}"
+              f" ms (CUDA events) [{card}]")
+        del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2848,19 +3143,26 @@ def run(dev, seed=0):
 
     # -- phase 9b (f): the training slice; 9d: SFRS on the same world; 9e
     # (j): the on-device jitter in both trainers, on that world too -------
-    with tempfile.TemporaryDirectory() as tmp:
-        train_launches = train_phase(dev, card, seed, tmp)
-        sfrs_launches = sfrs_phase(dev, card, seed, tmp)
-        jitter_phase(dev, card, seed, tmp)
+    with tempfile.TemporaryDirectory() as train_tmp:
+        train_launches, single = train_phase(dev, card, seed, train_tmp)
+        sfrs_launches = sfrs_phase(dev, card, seed, train_tmp)
+        jitter_phase(dev, card, seed, train_tmp)
 
-    # -- phase 9c (h): checkpoint evaluation, Tokyo 24/7, and the rerank;
-    # 9f (m): the mesh (NCCL at world size 1, then two gloo ranks) ---------
-    with tempfile.TemporaryDirectory() as tmp:
-        tokyo_launches, rerank_launches = tokyo_phase(eval_tree, dev, card,
-                                                      seed, tmp)
-        mesh_launches = mesh_phase(eval_tree, gallery, desc_k1, rows, dev,
-                                   card, seed, tmp)
-    del eval_tree
+        # -- phase 9c (h): checkpoint evaluation, Tokyo 24/7, and the
+        # rerank; 9f (m): the mesh (NCCL at world size 1, then two gloo
+        # ranks) ----------------------------------------------------------
+        with tempfile.TemporaryDirectory() as tmp:
+            tokyo_launches, rerank_launches = tokyo_phase(
+                eval_tree, dev, card, seed, tmp)
+            mesh_launches = mesh_phase(eval_tree, gallery, desc_k1, rows,
+                                       dev, card, seed, tmp)
+        del eval_tree
+
+        # -- phase 9g (t): data-parallel training on the training phase's
+        # world (NCCL at world size 1 through the example, two gloo ranks)
+        mesh_launches["mesh_train_torchrun"] = mesh_train_phase(
+            dev, card, seed, train_tmp, single)
+        del single
 
     # -- phase 10: each kernel's host enqueue time, then the launch floor
     # and each device time (after every timed phase) ------------------------

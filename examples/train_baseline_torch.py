@@ -7,13 +7,22 @@ Usage (published Pitts30k recipe, on the card):
 A hermetic run on the synthetic world, on the CPU:
   python examples/train_baseline_torch.py -d synthetic --height 32 --width 48 \\
       --num-clusters 8 --neg-num 2 --features 16 --epochs 1 --device cpu
-
-Without ``--device`` the run needs a CUDA card and raises without one.
+On N cards, one process each (NCCL; each rank trains on its rows of every
+global tuple batch, the gradients averaged over the ranks, only rank 0
+writes and prints; --tuple-size must be a multiple of N):
+  torchrun --nproc-per-node=N examples/train_baseline_torch.py -d pitts --scale 30k \\
+      --tuple-size N --n-devices N --device-jitter --loss-type sare_ind
+``--device-jitter`` draws every step's ColorJitter for the global batch,
+so N ranks train on the pixels one process sees; the host jitter draws
+per process (a warning says so). On the CPU add ``--device cpu`` (gloo
+across processes). Without ``--device`` the run needs a CUDA card and
+raises without one.
 """
 
 import argparse
 import os.path as osp
 import sys
+import warnings
 
 sys.path.insert(0, osp.join(osp.dirname(osp.abspath(__file__)), ".."))
 
@@ -21,11 +30,14 @@ from openibl_tpu_torch.config import DataConfig, TrainConfig  # noqa: E402
 from openibl_tpu_torch.engine.pipeline import (  # noqa: E402
     run_baseline_training,
 )
-from openibl_tpu_torch.parallel.mesh import world_size  # noqa: E402
-from openibl_tpu_torch.utils import Logger, resolve_device  # noqa: E402
+from openibl_tpu_torch.parallel.mesh import (  # noqa: E402
+    get_mesh, maybe_init_distributed, run_device,
+)
+from openibl_tpu_torch.utils import Logger  # noqa: E402
 
 
-def main(argv=None):
+def parse(argv=None):
+    """(arguments, the run's config) from the command line."""
     p = argparse.ArgumentParser(description="NetVLAD/SARE training (PyTorch)")
     p.add_argument("-d", "--dataset", type=str, default="pitts")
     p.add_argument("-a", "--arch", type=str, default="vgg16")
@@ -73,16 +85,11 @@ def main(argv=None):
                    help="ColorJitter on the device (raw uint8 tuples, the "
                         "jitter seeded per epoch, subset and step)")
     p.add_argument("--n-devices", type=int, default=None,
-                   help="more than one device is not ported yet (ROADMAP "
-                        "Queue 1 item 12b)")
+                   help="the launch's process count, checked (default: "
+                        "whatever torchrun started)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (default: the card)")
     args = p.parse_args(argv)
-
-    if (args.n_devices or 1) > 1 or world_size() > 1:
-        raise SystemExit("more than one device: multi-GPU training is not "
-                         "ported yet (ROADMAP Queue 1 item 12b)")
-    device = resolve_device(args.device)
     cfg = TrainConfig(
         data=DataConfig(
             dataset=args.dataset, scale=args.scale, data_dir=args.data_dir,
@@ -102,10 +109,28 @@ def main(argv=None):
         compute_dtype="bfloat16" if args.bf16 else "float32",
         device_jitter=args.device_jitter,
     )
-    sys.stdout = Logger(osp.join(cfg.logs_dir, "log.txt"))
-    print(f"config: {cfg}")
-    print(f"device: {device}")
-    run_baseline_training(cfg, device=device)
+    return args, cfg
+
+
+def main(argv=None):
+    """Train as the command line says: one process, or one rank of a
+    torchrun / Slurm launch (a process group, one device a rank). Returns
+    what ``run_baseline_training`` returns."""
+    args, cfg = parse(argv)
+    maybe_init_distributed(device=args.device)
+    mesh = get_mesh(args.n_devices, device=args.device)
+    device = run_device(args.device, mesh)
+    if mesh.size > 1 and cfg.augment and not cfg.device_jitter:
+        warnings.warn(
+            "host ColorJitter draws per process: a multi-rank run jitters "
+            "other pixels than one process would; pass --device-jitter to "
+            "draw the global batch's jitter on every rank")
+    if mesh.rank == 0:  # rank 0 logs, as the reference
+        sys.stdout = Logger(osp.join(cfg.logs_dir, "log.txt"))
+        print(f"config: {cfg}")
+        print(f"device: {device}")
+        print(f"mesh: {mesh.size} rank(s)")
+    return run_baseline_training(cfg, device=device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -16,8 +16,8 @@ and tuple order. The distances and choices run on the features' device
 anchor's ``pos_pool`` nearest positives, ranked on the device, of which it
 keeps those the k-reciprocal Jaccard ordering promotes (numpy, stable
 sorts). ``slice_indices`` cuts a dataset into the ranks' contiguous
-slices for sharded extraction; ``shard_tuples`` comes with the
-data-parallel step (ROADMAP Queue 1 item 12b).
+slices for sharded extraction; ``shard_tuples`` gives each rank its rows
+of every global tuple batch for the data-parallel step.
 """
 
 import numpy as np
@@ -215,3 +215,24 @@ def slice_indices(n, n_shards, shard):
     per = -(-n // n_shards)
     idx = np.resize(np.arange(n), per * n_shards)
     return idx[shard * per:(shard + 1) * per]
+
+
+def shard_tuples(tuples, tuple_size, n_shards, shard):
+    """Shard ``shard``'s part of the mined tuple stream, for ``n_shards``
+    ranks: the stream is cut to whole global batches of ``tuple_size``
+    tuples (the last partial batch dropped, as TupleLoader drops it in one
+    process), and the shard takes rows [shard * per, (shard + 1) * per) of
+    every global batch, per = tuple_size / n_shards. The rank-ordered
+    concatenation of the shards' batches is the global batch, and every
+    rank takes the same number of steps."""
+    if tuple_size % n_shards:
+        raise ValueError(
+            f"tuple_size={tuple_size} must be a multiple of the process "
+            f"count ({n_shards}) for multi-host tuple sharding"
+        )
+    per = tuple_size // n_shards
+    n_whole = len(tuples) - len(tuples) % tuple_size
+    out = []
+    for s in range(0, n_whole, tuple_size):
+        out.extend(tuples[s + shard * per:s + (shard + 1) * per])
+    return out

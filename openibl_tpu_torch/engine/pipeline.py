@@ -1,6 +1,7 @@
 """Training and evaluation workflows (port of
-openibl_tpu/engine/pipeline.py, one device): baseline training (triplet /
-SARE with hard-negative mining), SFRS training and checkpoint evaluation.
+openibl_tpu/engine/pipeline.py): baseline training (triplet / SARE with
+hard-negative mining), SFRS training and checkpoint evaluation, on one
+device or data-parallel over the ranks of a mesh.
 
 Per epoch: the StepLR rate, then for each shuffled subset of the training
 queries
@@ -45,7 +46,17 @@ and the gallery through K1; PCA-whitening loaded or fitted on demand;
 spatial NMS; the k-reciprocal rerank. With a mesh (parallel.mesh) the
 extractions and the kNN are split over its ranks.
 
-The data-parallel training step comes with ROADMAP Queue 1 item 12b.
+With a mesh (``parallel.mesh.get_mesh``, one device a rank) both
+trainings run data-parallel, as the reference under ``torch.distributed``:
+every rank builds the model and takes rank 0's parameters
+(``broadcast_module``, again after a resume, with the SGD momentum); the
+mining, validation and PCA extractions are split over the ranks; every
+rank mines, and rank 0's tuples and negative cache are broadcast (the
+card's Jaccard sweep sums with atomics, so two cards may order near-ties
+differently); each rank trains on its rows of every global batch
+(``_local_tuple_stream``) with the gradients averaged over the ranks; only
+rank 0 writes files and prints, and a barrier orders each write before
+its readers.
 """
 
 import os
@@ -59,7 +70,8 @@ from openibl_tpu_torch import models
 from openibl_tpu_torch.data.loader import (
     BatchLoader, ImageSource, PaddedBatchLoader, TupleLoader,
 )
-from openibl_tpu_torch.data.sampler import DiffTupleSampler, TupleSampler
+from openibl_tpu_torch.data.sampler import (DiffTupleSampler, TupleSampler,
+                                            shard_tuples)
 from openibl_tpu_torch.data.transforms import TestTransform, TrainTransform
 from openibl_tpu_torch.engine.evaluator import Evaluator
 from openibl_tpu_torch.engine.sfrs import SFRSTrainer, make_teacher
@@ -70,9 +82,12 @@ from openibl_tpu_torch.ops.distance import pairwise_sqdist
 from openibl_tpu_torch.ops.kmeans import kmeans
 from openibl_tpu_torch.ops.rerank import build_v_sparse, jaccard_for_queries
 from openibl_tpu_torch.parallel.extract import extract_features_sharded
-from openibl_tpu_torch.parallel.mesh import run_device
+from openibl_tpu_torch.parallel.mesh import (barrier, broadcast_module,
+                                             broadcast_object,
+                                             broadcast_tensors,
+                                             check_replicated, run_device)
 from openibl_tpu_torch.utils import (array_file, f32_precision, read_arrays,
-                                     resolve_device, to_numpy, write_arrays)
+                                     to_numpy, write_arrays)
 from openibl_tpu_torch.utils.checkpoint import (
     load_npz_tree, read_checkpoint, save_checkpoint,
 )
@@ -93,6 +108,30 @@ def _apply_iters_cap(tuples, iters, tuple_size):
     return (list(tuples) * reps)[:need]
 
 
+def _local_tuple_stream(tuples, tuple_size, mesh):
+    """This rank's part of the mined tuple stream and its batch size: the
+    stream itself without a mesh or at world size 1; else its rows of every
+    global batch (``shard_tuples``) and tuple_size / size tuples a step."""
+    if mesh is None or mesh.size == 1:
+        return tuples, tuple_size
+    return (shard_tuples(tuples, tuple_size, mesh.size, mesh.rank),
+            tuple_size // mesh.size)
+
+
+def _rank0_tuples(mesh, sampler):
+    """Rank 0's freshly mined tuples and negative cache on every rank (its
+    ``sampler`` updated); the sampler's own without a group. Every rank has
+    drawn the same numbers from its ``sampler.rng``, so the samplers stay
+    in step."""
+    sampler.tuples, sampler.neg_cache = broadcast_object(
+        mesh, (sampler.tuples, sampler.neg_cache))
+    return sampler.tuples
+
+
+def _is_rank0(mesh):
+    return mesh is None or mesh.rank == 0
+
+
 # ---------------------------------------------------------------------------
 # setup helpers
 # ---------------------------------------------------------------------------
@@ -106,7 +145,7 @@ def load_dataset(cfg):
 
 
 def bootstrap_centroids(cfg, dataset, base, n_images=500, per_image=100,
-                        seed=43):
+                        seed=43, mesh=None):
     """NetVLAD centroid bootstrap: conv5 descriptors sampled from random
     train images (``base`` on its device, f32 maps), k-means on the same
     device. Returns (centroids (K, C), descriptors (N, C)) numpy f32.
@@ -114,11 +153,13 @@ def bootstrap_centroids(cfg, dataset, base, n_images=500, per_image=100,
     Reads or writes the JAX package's cache
     ({arch}_{dataset}_{k}_desc_cen.hdf5 with 'centroids' + 'descriptors';
     .npz under the same name where h5py is not installed,
-    ``utils.array_file``)."""
+    ``utils.array_file``). With a ``mesh`` rank 0 decides whether the
+    cache exists; without it every rank bootstraps, rank 0 writes the
+    cache and a barrier holds the ranks until it is written."""
     cache = array_file(osp.join(
         cfg.init_dir,
         f"{cfg.arch}_{cfg.data.dataset}_{cfg.num_clusters}_desc_cen.hdf5"))
-    if osp.isfile(cache):
+    if broadcast_object(mesh, osp.isfile(cache)):
         return tuple(read_arrays(cache, ("centroids", "descriptors")))
 
     items = sorted(set(dataset.q_train) | set(dataset.db_train))
@@ -147,8 +188,10 @@ def bootstrap_centroids(cfg, dataset, base, n_images=500, per_image=100,
         descs = np.concatenate(descs).astype(np.float32)
         centroids, _ = kmeans(torch.from_numpy(descs).to(dev),
                               cfg.num_clusters, iters=100, seed=seed)
-    os.makedirs(cfg.init_dir, exist_ok=True)
-    write_arrays(cache, {"descriptors": descs, "centroids": centroids})
+    if _is_rank0(mesh):
+        os.makedirs(cfg.init_dir, exist_ok=True)
+        write_arrays(cache, {"descriptors": descs, "centroids": centroids})
+    barrier(mesh)
     return centroids, descs
 
 
@@ -167,10 +210,11 @@ def new_embednet(cfg, rng_seed=0, region=False):
     return models.create("embednet", base=base, net_vlad=nv)
 
 
-def build_model(cfg, dataset, device, rng_seed=0, region=False):
+def build_model(cfg, dataset, device, rng_seed=0, region=False, mesh=None):
     """Backbone + NetVLAD with centroid init, on ``device``, layers before
     ``cfg.train_layers`` frozen. Returns the EmbedNet (the EmbedRegionNet
-    with ``region``).
+    with ``region``). With a ``mesh`` every rank holds rank 0's parameters
+    and buffers (``broadcast_module``).
 
     The backbone starts from the MatConvNet VGG16 the reference trains from
     when ``{init_dir}/vd16_offtheshelf_conv5_3_max.pth`` exists (loaded
@@ -184,12 +228,12 @@ def build_model(cfg, dataset, device, rng_seed=0, region=False):
         model.load_state_dict(state, strict=False)
     base.freeze(cfg.train_layers)
     model.to(device, memory_format=torch.channels_last)
-    clsts, traindescs = bootstrap_centroids(cfg, dataset, base)
+    clsts, traindescs = bootstrap_centroids(cfg, dataset, base, mesh=mesh)
     init = models.netvlad_init_from_clusters(clsts, traindescs)
     with torch.no_grad():
         nv.assign_w.copy_(init["assign_w"])
         nv.centroids.copy_(init["centroids"])
-    return model
+    return broadcast_module(mesh, model)
 
 
 def eval_view(model):
@@ -269,28 +313,28 @@ def run_baseline_training(cfg, device="cuda", mesh=None, verbose=True,
     """Train, select the best epoch, fit PCA and evaluate the test split.
 
     Runs on ``device`` (the card by default; without one this raises
-    unless ``device="cpu"``). Returns (model, final test recalls, history
-    [(epoch, val recalls)]); the model holds the best epoch's parameters.
+    unless ``device="cpu"``), or data-parallel over the ranks of ``mesh``
+    (each on its own device of ``device``'s type). Returns (model, final
+    test recalls, history [(epoch, val recalls)]); the model holds the best
+    epoch's parameters.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device training is not ported to openibl_tpu_torch yet: "
-            "ROADMAP Queue 1 item 12b")
-    device = resolve_device(device)
+    device = run_device(device, mesh)
+    verbose = verbose and _is_rank0(mesh)
     timer = timer if timer is not None else PhaseTimer(device)
     dataset = load_dataset(cfg)
     sources = make_sources(cfg, dataset)
-    model = build_model(cfg, dataset, device)
+    model = build_model(cfg, dataset, device, mesh=mesh)
     emodel = eval_view(model)
     feature = "vlad" if cfg.use_vlad else "pool"
-    evaluator = Evaluator(emodel, feature=feature)
+    evaluator = Evaluator(emodel, feature=feature, mesh=mesh)
 
     trainer = Trainer(
         model, loss_type=cfg.loss_type, margin=cfg.margin, lr=cfg.lr,
-        momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+        momentum=cfg.momentum, weight_decay=cfg.weight_decay, mesh=mesh,
         use_pool_feature=not cfg.use_vlad, remat=cfg.remat,
         device_jitter=_use_device_jitter(cfg),
     )
+    trainer.check_batch_shape(cfg.tuple_size)
     trainer.init()
     sampler = TupleSampler(
         len(dataset.q_train), len(dataset.db_train),
@@ -305,6 +349,7 @@ def run_baseline_training(cfg, device="cuda", mesh=None, verbose=True,
         if "torch_sgd" in tree:  # a JAX checkpoint restarts the momentum
             trainer.load_momentum_state(
                 convert.params_from_jax(tree["torch_sgd"]["momentum"]))
+        _replicate_trainer(mesh, trainer)
         sampler.neg_cache = np.asarray(tree["neg_cache"])
         start_epoch = int(meta.get("epoch", -1)) + 1
         best_recall5 = float(meta.get("best_recall5", 0.0))
@@ -320,18 +365,20 @@ def run_baseline_training(cfg, device="cuda", mesh=None, verbose=True,
         ):
             with _WATCHDOG.watch(f"mining extraction epoch {epoch}-{subid}"), \
                     timer.phase("mining_extract"):
-                g_feats = _extract(emodel, sources["db_train"], cfg, feature)
+                g_feats = _extract(emodel, sources["db_train"], cfg, feature,
+                                   mesh=mesh)
                 q_feats = _extract(emodel, sources["q_train"], cfg, feature,
-                                   indices=subset)
+                                   indices=subset, mesh=mesh)
             with timer.phase("mining_refresh"):
-                tuples = sampler.refresh(q_feats, g_feats, subset)
+                sampler.refresh(q_feats, g_feats, subset)
+                tuples = _rank0_tuples(mesh, sampler)
             # the tuples are host lists now: free the (G, D) gallery before
             # training needs the memory (~11 GB at Pitts250k, 32768-d)
             del g_feats, q_feats
             tuples = _apply_iters_cap(tuples, cfg.iters, cfg.tuple_size)
             sources["tuple"].transform.reseed(cfg.seed, epoch, subid)
-            loader = TupleLoader(sources["tuple"], tuples, cfg.tuple_size,
-                                 prefetch=pf)
+            loader = TupleLoader(sources["tuple"], *_local_tuple_stream(
+                tuples, cfg.tuple_size, mesh), prefetch=pf)
             with timer.phase("train"):
                 avg_loss = trainer.train_epoch(
                     loader, print_freq=cfg.print_freq,
@@ -350,15 +397,16 @@ def run_baseline_training(cfg, device="cuda", mesh=None, verbose=True,
             history.append((epoch, recalls))
             is_best = recalls[1] > best_recall5
             best_recall5 = max(recalls[1], best_recall5)
-            save_checkpoint(
-                osp.join(cfg.logs_dir, f"checkpoint{epoch}.npz"),
-                {"params": convert.params_to_jax(model.state_dict()),
-                 "torch_sgd": {"momentum": convert.params_to_jax(
-                     trainer.momentum_state())},
-                 "neg_cache": sampler.neg_cache},
-                {"epoch": epoch, "best_recall5": float(best_recall5)},
-                is_best=is_best,
-            )
+            if _is_rank0(mesh):
+                save_checkpoint(
+                    osp.join(cfg.logs_dir, f"checkpoint{epoch}.npz"),
+                    {"params": convert.params_to_jax(model.state_dict()),
+                     "torch_sgd": {"momentum": convert.params_to_jax(
+                         trainer.momentum_state())},
+                     "neg_cache": sampler.neg_cache},
+                    {"epoch": epoch, "best_recall5": float(best_recall5)},
+                    is_best=is_best,
+                )
             if verbose:
                 print(
                     f" * epoch {epoch} recall@1/5/10: "
@@ -366,11 +414,26 @@ def run_baseline_training(cfg, device="cuda", mesh=None, verbose=True,
                     f"best@5 {best_recall5:.1%}{' *' if is_best else ''}")
 
     # final: PCA on the best model, test-split eval
-    best_path = osp.join(cfg.logs_dir, "model_best.npz")
-    if osp.isfile(best_path):
-        _load_params(model, read_checkpoint(best_path)[0]["params"])
-    recalls = finalize_with_pca(cfg, dataset, sources, model, verbose=verbose)
+    _load_best(cfg, model, mesh)
+    recalls = finalize_with_pca(cfg, dataset, sources, model, verbose=verbose,
+                                mesh=mesh)
     return model, recalls, history
+
+
+def _replicate_trainer(mesh, trainer):
+    """After a resume: rank 0's parameters and SGD momentum on every rank
+    (each rank read the same file; the broadcast makes it so)."""
+    broadcast_module(mesh, trainer.model)
+    broadcast_tensors(mesh, trainer.momentum_state().values())
+
+
+def _load_best(cfg, model, mesh):
+    """The best checkpoint's parameters into ``model``, if rank 0 wrote
+    one; every rank waits for rank 0's writes first."""
+    barrier(mesh)
+    best_path = osp.join(cfg.logs_dir, "model_best.npz")
+    if broadcast_object(mesh, osp.isfile(best_path)):
+        _load_params(model, read_checkpoint(best_path)[0]["params"])
 
 
 def _train_pca(feats, pca_dim, whiten, params_path, seed):
@@ -386,23 +449,28 @@ def _train_pca(feats, pca_dim, whiten, params_path, seed):
     return pca
 
 
-def finalize_with_pca(cfg, dataset, sources, model, verbose=True):
+def finalize_with_pca(cfg, dataset, sources, model, verbose=True,
+                      mesh=None):
     """Fit PCA-whitening on the training split's descriptors and evaluate
     the test split with the reduction (pool or VLAD feature per
     ``cfg.use_vlad``). The fit is saved as pca_params_model_best.h5 in
-    ``cfg.logs_dir`` (``utils.array_file``)."""
+    ``cfg.logs_dir`` (``utils.array_file``). With a ``mesh`` the
+    extractions are split over its ranks, every rank fits the same PCA on
+    the gathered descriptors, rank 0 writes it and only rank 0 prints."""
     feature = "vlad" if cfg.use_vlad else "pool"
+    verbose = verbose and _is_rank0(mesh)
     emodel = eval_view(model)
-    feats = torch.cat([_extract(emodel, sources[name], cfg, feature)
+    feats = torch.cat([_extract(emodel, sources[name], cfg, feature,
+                                mesh=mesh)
                        for name in ("q_train", "db_train")])
     pca = _train_pca(
         feats, cfg.pca_dim, cfg.whiten,
-        array_file(osp.join(cfg.logs_dir, "pca_params_model_best.h5")),
-        cfg.seed)
+        array_file(osp.join(cfg.logs_dir, "pca_params_model_best.h5"))
+        if _is_rank0(mesh) else None, cfg.seed)
     del feats
     if verbose:
         print("Testing with PCA reduction:")
-    return Evaluator(emodel, feature=feature).evaluate_sources(
+    return Evaluator(emodel, feature=feature, mesh=mesh).evaluate_sources(
         sources["q_test"], sources["db_test"], dataset.test_pos, pca=pca,
         batch_size=cfg.data.test_batch_size, prefetch=cfg.data.workers,
         print_results=verbose,
@@ -441,39 +509,39 @@ def run_sfrs_training(cfg, device="cuda", mesh=None, verbose=True,
     (validation Recall@5, strict), fit PCA and evaluate the test split.
 
     Runs on ``device`` (the card by default; without one this raises
-    unless ``device="cpu"``). ``timer`` (a ``utils.profiling.PhaseTimer``)
-    gets the phases "mining_extract", "mining_jaccard" (gen >= 1),
-    "mining_refresh", "train" and "eval". Returns (model, final test
-    recalls); the model (an EmbedRegionNet) holds the best checkpoint's
-    parameters."""
+    unless ``device="cpu"``), or data-parallel over the ranks of ``mesh``
+    as ``run_baseline_training`` (every rank computes the Jaccard rows on
+    the gathered descriptors; rank 0's tuples supersede them). ``timer``
+    (a ``utils.profiling.PhaseTimer``) gets the phases "mining_extract",
+    "mining_jaccard" (gen >= 1), "mining_refresh", "train" and "eval".
+    Returns (model, final test recalls); the model (an EmbedRegionNet)
+    holds the best checkpoint's parameters."""
     if not cfg.use_vlad:
         raise ValueError("SFRS training is defined on the VLAD feature "
                          "(the reference hardcodes vlad=True); "
                          "use_vlad=False is only supported by the baseline")
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device training is not ported to openibl_tpu_torch yet: "
-            "ROADMAP Queue 1 item 12b")
     if len(cfg.temperature) < cfg.generations:
         raise ValueError(
             f"SFRS needs one teacher temperature per generation: got "
             f"{len(cfg.temperature)} temps for {cfg.generations} generations")
-    device = resolve_device(device)
+    device = run_device(device, mesh)
+    verbose = verbose and _is_rank0(mesh)
     timer = timer if timer is not None else PhaseTimer(device)
     dataset = load_dataset(cfg)
     sources = make_sources(cfg, dataset)
-    model = build_model(cfg, dataset, device, region=True)
+    model = build_model(cfg, dataset, device, region=True, mesh=mesh)
     emodel = eval_view(model)
-    # the re-init source of every generation's student
+    # the re-init source of every generation's student (rank 0's)
     pristine = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    evaluator = Evaluator(emodel)
+    evaluator = Evaluator(emodel, mesh=mesh)
     trainer = SFRSTrainer(
         model, loss_type=cfg.loss_type, margin=cfg.margin,
         temps=cfg.temperature, soft_weight=cfg.soft_weight,
         neg_num=cfg.neg_num, lr=cfg.lr, momentum=cfg.momentum,
-        weight_decay=cfg.weight_decay, remat=cfg.remat,
+        weight_decay=cfg.weight_decay, mesh=mesh, remat=cfg.remat,
         device_jitter=_use_device_jitter(cfg),
     )
+    trainer.check_batch_shape(cfg.tuple_size)
     sampler = DiffTupleSampler(
         len(dataset.q_train), len(dataset.db_train),
         dataset.train_pos, dataset.train_neg,
@@ -502,6 +570,7 @@ def run_sfrs_training(cfg, device="cuda", mesh=None, verbose=True,
             trainer.init_generation()
             trainer.load_jax_opt_state(resume["opt_state"],
                                        convert.params_from_jax)
+            _replicate_trainer(mesh, trainer)
             start_epoch = resume_epoch
             resume = None
         else:
@@ -510,6 +579,8 @@ def run_sfrs_training(cfg, device="cuda", mesh=None, verbose=True,
             model.load_state_dict(pristine)
             trainer.init_generation()
             start_epoch = cfg.epochs - 1 if gen == 0 else 0
+        check_replicated(mesh, teacher.state_dict().values(),
+                         f"generation {gen}'s teacher")
 
         for epoch in range(start_epoch, cfg.epochs):
             sampler.set_epoch(cfg.seed + epoch)
@@ -526,11 +597,12 @@ def run_sfrs_training(cfg, device="cuda", mesh=None, verbose=True,
                                      f"{epoch}-{subid}"), \
                         timer.phase("mining_extract"):
                     g_feats = _extract(emodel, sources["db_train"], cfg,
-                                       "vlad")
+                                       "vlad", mesh=mesh)
                     # gen >= 1 needs every query for the Jaccard union
                     q_feats = _extract(emodel, sources["q_train"], cfg,
                                        "vlad",
-                                       indices=None if gen else subset)
+                                       indices=None if gen else subset,
+                                       mesh=mesh)
                 if gen > 0:
                     with timer.phase("mining_jaccard"):
                         jaccard_rows = _jaccard_rows(
@@ -538,15 +610,16 @@ def run_sfrs_training(cfg, device="cuda", mesh=None, verbose=True,
                         q_feats = q_feats[torch.as_tensor(
                             subset, device=q_feats.device)]
                 with timer.phase("mining_refresh"):
-                    tuples = sampler.refresh(q_feats, g_feats, subset,
-                                             jaccard_rows=jaccard_rows)
+                    sampler.refresh(q_feats, g_feats, subset,
+                                    jaccard_rows=jaccard_rows)
+                    tuples = _rank0_tuples(mesh, sampler)
                 # the tuples are host lists now: free the mining buffers
                 # before training needs the memory
                 del g_feats, q_feats, jaccard_rows
                 tuples = _apply_iters_cap(tuples, cfg.iters, cfg.tuple_size)
                 sources["tuple"].transform.reseed(cfg.seed, gen, epoch, subid)
-                loader = TupleLoader(sources["tuple"], tuples,
-                                     cfg.tuple_size, prefetch=pf)
+                loader = TupleLoader(sources["tuple"], *_local_tuple_stream(
+                    tuples, cfg.tuple_size, mesh), prefetch=pf)
                 with timer.phase("train"):
                     lh, ls = trainer.train_epoch(
                         teacher, loader, gen, print_freq=cfg.print_freq,
@@ -567,25 +640,26 @@ def run_sfrs_training(cfg, device="cuda", mesh=None, verbose=True,
                     batch_size=bs, prefetch=pf, print_results=verbose)
             is_best = recalls[1] > best_recall5
             best_recall5 = max(recalls[1], best_recall5)
-            save_checkpoint(
-                osp.join(cfg.logs_dir, f"checkpoint{gen}_{epoch}.npz"),
-                {"params": convert.params_to_jax(model.state_dict()),
-                 "opt_state": trainer.jax_opt_state(convert.params_to_jax),
-                 "teacher": convert.params_to_jax(teacher.state_dict()),
-                 "neg_cache": sampler.neg_cache},
-                {"epoch": epoch, "generation": gen,
-                 "best_recall5": float(best_recall5)},
-                is_best=is_best,
-            )
+            if _is_rank0(mesh):
+                save_checkpoint(
+                    osp.join(cfg.logs_dir, f"checkpoint{gen}_{epoch}.npz"),
+                    {"params": convert.params_to_jax(model.state_dict()),
+                     "opt_state": trainer.jax_opt_state(
+                         convert.params_to_jax),
+                     "teacher": convert.params_to_jax(teacher.state_dict()),
+                     "neg_cache": sampler.neg_cache},
+                    {"epoch": epoch, "generation": gen,
+                     "best_recall5": float(best_recall5)},
+                    is_best=is_best,
+                )
             if verbose:
                 print(f" * gen {gen} epoch {epoch} recall@1/5/10: "
                       f"{recalls[0]:.1%}/{recalls[1]:.1%}/{recalls[2]:.1%}"
                       f"{' *' if is_best else ''}")
 
-    best_path = osp.join(cfg.logs_dir, "model_best.npz")
-    if osp.isfile(best_path):
-        _load_params(model, read_checkpoint(best_path)[0]["params"])
-    recalls = finalize_with_pca(cfg, dataset, sources, model, verbose=verbose)
+    _load_best(cfg, model, mesh)
+    recalls = finalize_with_pca(cfg, dataset, sources, model, verbose=verbose,
+                                mesh=mesh)
     return model, recalls
 
 

@@ -1,5 +1,5 @@
 """SFRS trainer: generational self-distillation with region similarities
-(port of openibl_tpu/engine/sfrs.py, one device).
+(port of openibl_tpu/engine/sfrs.py).
 
   * the student is the ``EmbedRegionNet`` being trained, updated in place;
     the teacher is a frozen copy of it (``make_teacher``: a deep copy with
@@ -15,9 +15,12 @@
     lambda_soft x the soft distillation loss, lambda_soft 0 at gen 0 (the
     soft loss is still computed and reported there);
   * with ``device_jitter`` the step jitters the whole raw tuple once on the
-    device and then splits it, so student and teacher see the same pixels.
-
-The data-parallel step (``mesh``) comes with ROADMAP Queue 1 item 12b.
+    device and then splits it, so student and teacher see the same pixels;
+  * with a ``mesh`` the step is the Trainer's data-parallel step: each rank
+    its T / size tuples (jittered from the global batch's draws, then
+    split), the teacher replicated (a copy of the broadcast student, which
+    the pipeline checks is the same on every rank), the gradients and both
+    losses averaged over the ranks in one all-reduce.
 """
 
 import copy
@@ -106,7 +109,7 @@ class SFRSTrainer(Trainer):
             sim_easy = torch.einsum("txil,tpjl->tpij", vlad_a, vlad_p)
             sim_diff = torch.einsum("txil,tpjl->tpij", vlad_a, r_diff)
             with torch.no_grad():
-                sim_teacher = teacher.apply_train(flat(diff))[0]
+                sim_teacher = teacher.apply_train(flat(diff), t)[0]
             loss_hard = sfrs_hard_loss(vlad_a, vlad_p, sim_easy,
                                        self.loss_type, self.temps[0],
                                        self.margin, gen)
@@ -119,7 +122,9 @@ class SFRSTrainer(Trainer):
         tensor) against ``teacher``; returns (loss_hard, loss_soft) as
         detached 0-d tensors. With ``device_jitter`` the batch is raw
         resized pixels, jittered once from ``generator`` before the split
-        into the student's and the teacher's views."""
+        into the student's and the teacher's views. With a mesh the batch
+        is this rank's T / size tuples, and the losses returned are the
+        global batch's."""
         if self.optimizer is None:
             raise RuntimeError("call init_generation() before step()")
         images = self._device_images(images, generator)
@@ -127,9 +132,10 @@ class SFRSTrainer(Trainer):
         with f32_precision():
             loss, loss_hard, loss_soft = self.losses(teacher, images, gen)
             loss.backward()
+        loss_hard, loss_soft = self._finish_grads(loss_hard, loss_soft)
         self.optimizer.step()
         self.step_count += 1
-        return loss_hard.detach(), loss_soft.detach()
+        return loss_hard, loss_soft
 
     def train_epoch(self, teacher, tuple_loader, gen, print_freq=10,
                     log_prefix="", rng=None):
@@ -137,6 +143,7 @@ class SFRSTrainer(Trainer):
         losses. ``rng`` (required with ``device_jitter``) keys the steps'
         jitter streams (``step_generators``)."""
         self.lambda_soft(gen)  # refuse a generation without a temperature
+        self._check_steps(tuple_loader)
         generators = self.step_generators(rng)
         l_hard, l_soft = AverageMeter(), AverageMeter()
         batch_time = AverageMeter()
@@ -148,7 +155,7 @@ class SFRSTrainer(Trainer):
             l_soft.update(float(ls))
             batch_time.update(time.time() - end)
             end = time.time()
-            if (i + 1) % print_freq == 0:
+            if (i + 1) % print_freq == 0 and self._show():
                 print(f"{log_prefix}[{i + 1}/{len(tuple_loader)}] "
                       f"Time {batch_time.val:.3f} ({batch_time.avg:.3f}) "
                       f"Loss_hard {l_hard.val:.3f} ({l_hard.avg:.3f}) "

@@ -1,5 +1,5 @@
 """Baseline trainer: triplet / SARE over mined tuples (port of
-openibl_tpu/engine/trainer.py, single device).
+openibl_tpu/engine/trainer.py).
 
   * one train step: a tuple batch (T, 2+neg, H, W, 3) through the model's
     eager head under autograd (never the fused kernel K1: its gradient is
@@ -17,9 +17,19 @@ openibl_tpu/engine/trainer.py, single device).
     (``torch.utils.checkpoint``), the JAX package's ``jax.checkpoint``;
   * ``device_jitter`` takes raw resized uint8 tuples and runs ColorJitter
     on the device before the mean subtraction (``device_jitter_batch``),
-    each step's draws from a CPU ``torch.Generator``.
-
-The data-parallel step (``mesh``) comes with ROADMAP Queue 1 item 12b.
+    each step's draws from a CPU ``torch.Generator``;
+  * after the backward every trainable parameter the loss did not reach
+    (NetVLAD on the pool-feature path) gets a zero gradient, so SGD decays
+    it and builds its momentum, as the JAX package's optax chain does;
+  * with a ``mesh`` (parallel.mesh, a process group with one device a
+    rank) the step is data-parallel: each rank runs forward, loss and
+    backward on its T / size tuples of the global batch
+    (``data.sampler.shard_tuples``), the gradients and the loss are
+    averaged over the ranks in one all-reduce (the psum XLA inserts in the
+    JAX package's sharded step), and every rank takes the same optimizer
+    step. The jitter draws are the global batch's, and a rank jitters the
+    rows of its own tuples, so N ranks see the pixels one process sees.
+    The parameters start equal on every rank (``broadcast_module``).
 """
 
 import itertools
@@ -31,20 +41,31 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from openibl_tpu_torch.data.transforms import PIXEL_MEAN
-from openibl_tpu_torch.ops.augment import color_jitter_batch, jitter_generator
+from openibl_tpu_torch.ops.augment import (apply_jitter, draw_jitter,
+                                           jitter_generator)
 from openibl_tpu_torch.ops.losses import tuple_loss
+from openibl_tpu_torch.parallel.mesh import (all_reduce_mean_,
+                                             check_same_on_every_rank)
 from openibl_tpu_torch.utils import AverageMeter, f32_precision
 
 JITTER_PARAMS = (0.7, 0.7, 0.7, 0.5)  # the reference's ColorJitter
 
 
-def device_jitter_batch(images, generator, jitter_params=JITTER_PARAMS):
+def device_jitter_batch(images, generator, jitter_params=JITTER_PARAMS,
+                        shard=(0, 1)):
     """(B, H, W, 3) raw 0..255 pixels → ColorJitter on their device, then
     the mean subtraction: normalized f32 for the model's float path (which
-    subtracts no mean; its uint8 path does)."""
+    subtracts no mean; its uint8 path does). ``shard`` (rank, size): the
+    images are rows [rank * B, (rank + 1) * B) of a batch of size * B, whose
+    draws are taken whole from ``generator`` and cut to these rows, so the
+    ranks together jitter as one process does."""
     b, c, s, h = jitter_params
-    out = color_jitter_batch(images, generator, brightness=b, contrast=c,
-                             saturation=s, hue=h)
+    rank, size = shard
+    n = len(images)
+    factors, orders = draw_jitter(n * size, generator, brightness=b,
+                                  contrast=c, saturation=s, hue=h)
+    rows = slice(rank * n, (rank + 1) * n)
+    out = apply_jitter(images, factors[rows], orders[rows])
     return out - torch.as_tensor(PIXEL_MEAN, dtype=torch.float32,
                                  device=out.device)
 
@@ -69,15 +90,16 @@ class Trainer:
                  lr=1e-3, momentum=0.9, weight_decay=1e-3, mesh=None,
                  use_pool_feature=False, remat=False, device_jitter=False,
                  jitter_params=JITTER_PARAMS):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the data-parallel train step is not ported to "
-                "openibl_tpu_torch yet: ROADMAP Queue 1 item 12b")
         if model.net_vlad.fused:
             raise ValueError("train through the eager NetVLAD head: the "
                              "fused kernel serves no-grad extraction "
                              "(pipeline.eval_view)")
+        dev = next(model.parameters()).device
+        if mesh is not None and dev != mesh.device:
+            raise ValueError(f"the model is on {dev}, the mesh's rank on "
+                             f"{mesh.device}")
         self.model = model
+        self.mesh = mesh
         self.loss_type = loss_type
         self.margin = float(margin)
         self.use_pool_feature = use_pool_feature  # trains on raw pool_x
@@ -89,6 +111,14 @@ class Trainer:
         self.weight_decay = weight_decay
         self.optimizer = None
         self.scheduler = None
+
+    def check_batch_shape(self, tuple_size):
+        """Fail fast on a tuple batch the mesh can't shard."""
+        if self.mesh is not None and tuple_size % self.mesh.size:
+            raise ValueError(
+                f"tuple_size={tuple_size} must be a multiple of the mesh "
+                f"size ({self.mesh.size}) for data-parallel sharding"
+            )
 
     def init(self):
         """Build the optimizer (the schedule starts at the next
@@ -119,14 +149,41 @@ class Trainer:
             raise ValueError("a device_jitter trainer needs a generator")
         t, g = images.shape[:2]
         flat = images.reshape((t * g,) + images.shape[2:])
-        return device_jitter_batch(flat, generator,
-                                   self.jitter_params).reshape(images.shape)
+        # with a mesh: this rank's rows of the global batch's draws
+        shard = {} if self.mesh is None else {"shard": (self.mesh.rank,
+                                                        self.mesh.size)}
+        return device_jitter_batch(flat, generator, self.jitter_params,
+                                   **shard).reshape(images.shape)
+
+    def _finish_grads(self, *losses):
+        """After the backward: a zero gradient for every trainable
+        parameter the loss did not reach, then with a mesh the mean over
+        the ranks of the gradients and of ``losses`` (one all-reduce).
+        Returns the losses, detached (the global means with a mesh)."""
+        params = self.optimizer.param_groups[0]["params"]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        losses = [loss.detach().clone() for loss in losses]
+        all_reduce_mean_(self.mesh, [p.grad for p in params] + losses)
+        return losses
+
+    def _check_steps(self, tuple_loader):
+        """Every rank must take as many steps as the others: each step's
+        all-reduce pairs with the other ranks' same step."""
+        check_same_on_every_rank(self.mesh, len(tuple_loader),
+                                 "the number of train steps")
+
+    def _show(self):
+        return self.mesh is None or self.mesh.rank == 0
 
     def step(self, images, generator=None):
         """One update on a tuple batch (T, 2+neg, H, W, 3), a numpy array
         or tensor; returns the loss (a detached 0-d tensor). With
         ``device_jitter`` the batch is raw resized pixels and ``generator``
-        (a CPU ``torch.Generator``) drives the jitter."""
+        (a CPU ``torch.Generator``) drives the jitter. With a mesh the
+        batch is this rank's T / size tuples of the global batch, and the
+        loss returned is the global batch's."""
         if self.optimizer is None:
             raise RuntimeError("call init() before step()")
         images = self._device_images(images, generator)
@@ -137,8 +194,9 @@ class Trainer:
             desc = self._descriptors(flat).reshape(t, g, -1)
             loss = tuple_loss(desc, self.loss_type, self.margin)
             loss.backward()
+        loss, = self._finish_grads(loss)
         self.optimizer.step()
-        return loss.detach()
+        return loss
 
     def set_epoch_lr(self, epoch, step_size, gamma=0.5):
         """Advance StepLR to ``epoch`` (once per epoch, before its
@@ -190,6 +248,7 @@ class Trainer:
         """One pass over the mined tuples; returns the mean loss. ``rng``
         (required with ``device_jitter``) keys the steps' jitter streams
         (``step_generators``)."""
+        self._check_steps(tuple_loader)
         losses, batch_time = AverageMeter(), AverageMeter()
         end = time.time()
         for i, (images, gen) in enumerate(zip(tuple_loader,
@@ -197,7 +256,7 @@ class Trainer:
             losses.update(float(self.step(images, gen)))
             batch_time.update(time.time() - end)
             end = time.time()
-            if (i + 1) % print_freq == 0:
+            if (i + 1) % print_freq == 0 and self._show():
                 print(f"{log_prefix}[{i + 1}/{len(tuple_loader)}] "
                       f"Time {batch_time.val:.3f} ({batch_time.avg:.3f}) "
                       f"Loss {losses.val:.3f} ({losses.avg:.3f})")

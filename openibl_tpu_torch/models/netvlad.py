@@ -305,11 +305,13 @@ class EmbedRegionNet(EmbedNet):
             _, fmap = self.base(images)
             return region_vlads(self.net_vlad, fmap)
 
-    def apply_train(self, images):
+    def apply_train(self, images, tuple_size=None):
+        """``tuple_size`` (default the model's) is T, the tuples in
+        ``images``: a data-parallel rank holds T / world size of them."""
+        t = tuple_size or self.tuple_size
         regions = self.region_descriptors(images)
         n, _, dim = regions.shape
-        regions = regions.reshape(self.tuple_size, n // self.tuple_size, 9,
-                                  dim)
+        regions = regions.reshape(t, n // t, 9, dim)
         vlad_a, vlad_p = regions[:, :1], regions[:, 1:]
         with f32_precision():
             score = torch.einsum("txil,tpjl->tpij", vlad_a, vlad_p)

@@ -10,10 +10,33 @@ to the other, or to a single process.
 
 Launch with ``torchrun --nproc-per-node=N`` (or under Slurm) and call
 ``maybe_init_distributed()`` before ``get_mesh()``.
+
+The JAX package's placement helpers (its ``parallel/mesh.py``) map to:
+
+  * ``global_batch`` / ``shard_batch`` / ``data_sharding``: nothing. Each
+    rank holds only its own rows of a batch (``data.sampler.shard_tuples``,
+    ``slice_indices``);
+  * ``globalize_tree`` / ``replicated``: ``broadcast_module``, rank 0's
+    parameters and buffers to every rank, once after the model is built
+    and again after a resume (``broadcast_tensors`` for other state, such
+    as the SGD momentum);
+  * ``local_view_tree`` / ``copy_tree``: nothing. A rank's tensors are its
+    own;
+  * the gradient psum XLA inserts into a sharded step: ``all_reduce_mean_``,
+    one all-reduce over a flat buffer of the gradients, then a divide by
+    the world size. Every loss is a mean over the tuple axis, and the
+    ranks hold equal shares of the batch, so the mean of the ranks' means
+    is the global mean.
+
+``broadcast_object`` carries rank 0's host objects (the mined tuples),
+``barrier`` orders a file write before its readers, ``check_replicated``
+and ``check_same_on_every_rank`` raise where the ranks disagree. Without a
+group (world size 1) each helper does nothing.
 """
 
 import dataclasses
 import datetime
+import itertools
 import os
 import subprocess
 
@@ -75,13 +98,6 @@ def _launch_env():
     rank = int(env["SLURM_PROCID"])
     return ("slurm", env.get("MASTER_ADDR"), env["MASTER_PORT"], rank,
             int(slurm_tasks), int(env.get("SLURM_LOCALID", rank)))
-
-
-def world_size():
-    """The number of processes the launcher started (1 without one), read
-    from its environment without joining a group."""
-    launch = _launch_env()
-    return 1 if launch is None else launch[4]
 
 
 def maybe_init_distributed(device="cuda"):
@@ -174,3 +190,126 @@ def all_gather_rows(mesh, x):
     dist.all_gather(list(out.chunk(mesh.size)), x.contiguous(),
                     group=mesh.group)
     return out
+
+
+def _group_size(mesh):
+    """The world size of ``mesh``'s group, which must be the mesh's own: an
+    all-reduce over another world size would sum the wrong shares."""
+    size = dist.get_world_size(mesh.group)
+    if size != mesh.size:
+        raise RuntimeError(f"the mesh says {mesh.size} ranks, its process "
+                           f"group has {size}")
+    return size
+
+
+def _by_dtype(tensors):
+    """``tensors`` grouped by dtype (insertion order), for flat buffers."""
+    groups = {}
+    for t in tensors:
+        groups.setdefault(t.dtype, []).append(t)
+    return groups.values()
+
+
+def _flat(tensors):
+    """One flat copy of same-dtype ``tensors`` in logical order (any
+    memory format)."""
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unflat_(tensors, flat):
+    """Copy ``flat`` (``_flat``'s layout) back into ``tensors``."""
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view(t.shape))
+        offset += t.numel()
+
+
+def all_reduce_mean_(mesh, tensors):
+    """Replace each of ``tensors`` (on the mesh's device) by its mean over
+    the ranks, in place: one all-reduce (sum) of a flat buffer per dtype,
+    then a divide by the world size. Every rank ends with the same bits.
+    Without a group, nothing."""
+    tensors = list(tensors)
+    if mesh is None or mesh.group is None or not tensors:
+        return
+    size = _group_size(mesh)
+    with torch.no_grad():
+        for group in _by_dtype(tensors):
+            flat = _flat(group)
+            dist.all_reduce(flat, group=mesh.group)
+            _unflat_(group, flat.div_(size))
+
+
+def broadcast_tensors(mesh, tensors):
+    """Rank 0's values of ``tensors`` on every rank, in place (one
+    broadcast a dtype). Without a group, nothing."""
+    tensors = list(tensors)
+    if mesh is None or mesh.group is None or not tensors:
+        return
+    _group_size(mesh)
+    with torch.no_grad():
+        for group in _by_dtype(tensors):
+            flat = _flat(group)
+            dist.broadcast(flat, src=0, group=mesh.group)
+            _unflat_(group, flat)
+
+
+def broadcast_module(mesh, module):
+    """Rank 0's parameters and buffers of ``module`` on every rank, in
+    place (the JAX package's replicated placement). Returns ``module``."""
+    broadcast_tensors(mesh, itertools.chain(module.parameters(),
+                                            module.buffers()))
+    return module
+
+
+def broadcast_object(mesh, obj):
+    """Rank 0's ``obj`` (any picklable host object) on every rank; ``obj``
+    itself without a group."""
+    if mesh is None or mesh.group is None:
+        return obj
+    _group_size(mesh)
+    box = [obj]
+    # NCCL stages the pickled bytes on the rank's card, gloo on the host
+    dist.broadcast_object_list(
+        box, src=0, group=mesh.group,
+        device=mesh.device if dist.get_backend(mesh.group) == "nccl"
+        else None)
+    return box[0]
+
+
+def barrier(mesh):
+    """Wait for every rank of ``mesh`` (an all-reduce of one element on
+    the mesh's device). Without a group, nothing."""
+    if mesh is None or mesh.group is None:
+        return
+    all_reduce_mean_(mesh, [torch.zeros(1, device=mesh.device)])
+
+
+def check_same_on_every_rank(mesh, value, what):
+    """Raise on every rank unless the integer ``value`` is the same on each
+    (e.g. a rank's step count, before the steps' collectives pair up)."""
+    if mesh is None or mesh.group is None:
+        return
+    got = all_gather_rows(mesh, torch.tensor([int(value)],
+                                             device=mesh.device)).tolist()
+    if len(set(got)) != 1:
+        raise RuntimeError(f"{what} differs across the ranks: {got}")
+
+
+def check_replicated(mesh, tensors, what):
+    """Raise on every rank unless ``tensors`` hold the same bits on each:
+    rank 0's flat copy is broadcast and compared bit for bit."""
+    tensors = list(tensors)
+    if mesh is None or mesh.group is None:
+        return
+    differ = torch.zeros(1, device=mesh.device)
+    with torch.no_grad():
+        for group in _by_dtype(tensors):
+            flat = _flat(group)
+            ref = flat.clone()
+            dist.broadcast(ref, src=0, group=mesh.group)
+            differ += not torch.equal(ref.view(torch.uint8),
+                                      flat.view(torch.uint8))
+    dist.all_reduce(differ, group=mesh.group)
+    if differ.item():
+        raise RuntimeError(f"{what} differs across the ranks")

@@ -252,9 +252,9 @@ def test_jittered_sfrs_step_gives_student_and_teacher_the_same_pixels():
         seen["student"] = x.detach().clone()
         return student_regions(x)
 
-    def spy_teacher(x):
+    def spy_teacher(x, *tuple_size):
         seen["teacher"] = x.detach().clone()
-        return teacher_apply(x)
+        return teacher_apply(x, *tuple_size)
 
     region.region_descriptors = spy_student
     teacher.apply_train = spy_teacher

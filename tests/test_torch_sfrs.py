@@ -391,8 +391,11 @@ def test_trainer_refuses_unported_options():
     _, params = _jax_params(0)
     model = _port_model(params)
     assert SFRSTrainer(model, device_jitter=True).device_jitter  # ported
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        SFRSTrainer(model, mesh=object())
+    from openibl_tpu_torch.parallel.mesh import Mesh
+
+    # the data-parallel step is ported; a mesh must hold the model's device
+    with pytest.raises(ValueError, match="the mesh's rank on meta"):
+        SFRSTrainer(model, mesh=Mesh(torch.device("meta")))
     fused = models.create("embedregionnet", net_vlad=models.NetVLAD(
         num_clusters=K, fused=True))
     with pytest.raises(ValueError, match="eager NetVLAD head"):

@@ -239,9 +239,13 @@ def test_sfrs_refuses_what_it_cannot_run(runs, monkeypatch):
         pipeline.run_sfrs_training(
             _cfg(SFRSConfig, DataConfig, tmp, "x", use_vlad=False),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    from openibl_tpu_torch.parallel.mesh import Mesh
+
+    # the mesh branch is ported; its rank's device must be of the run's type
+    with pytest.raises(ValueError, match="mesh's device"):
         pipeline.run_sfrs_training(_cfg(SFRSConfig, DataConfig, tmp, "x"),
-                                   device="cpu", mesh=object())
+                                   device="cpu",
+                                   mesh=Mesh(torch.device("meta")))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         pipeline.run_sfrs_training(_cfg(SFRSConfig, DataConfig, tmp, "x"))

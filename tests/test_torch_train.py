@@ -241,6 +241,62 @@ def test_trainer_steps_match_jax(loss_type):
         np.testing.assert_allclose(value, jafter[key], rtol=1e-3, atol=1e-7)
 
 
+def test_pool_feature_steps_match_jax():
+    """use_pool_feature: the loss never reaches NetVLAD, whose leaves still
+    train in the JAX package (weight decay, then momentum, on a zero
+    gradient). The port gives them zero gradients, so SGD moves them as
+    optax does. Two steps at lr 1e-2, the second with the first's momentum:
+    losses at rtol 1e-5, every trainable leaf's update (NetVLAD's too) at
+    rtol 1e-3 of its largest entry plus one ulp, frozen layers untouched.
+
+    Both steps start from the initial parameters (the momentum carried
+    over): on the raw pool output one step at lr 1e-2 moves the triplet
+    loss ~4x, to where its distances cancel to ~1e-5 of f32 rounding.
+    Triplet, the reference's default loss: the SARE losses reach 1e9-1e11
+    after such a step. conv5_3's bias shifts every pooled descriptor
+    alike, so a distance loss's gradient there is 0 up to rounding
+    (~1e-9): the conv5 biases start nonzero, as a trained model's, so
+    weight decay gives them an update to compare."""
+    jax, jnp = _jax()
+    from openibl_tpu.engine.trainer import Trainer as JTrainer
+
+    jmodel, params = _jax_embednet()
+    rng = np.random.RandomState(7)
+    for i in (1, 2, 3):
+        b = params["base"][f"conv5_{i}"]["b"]
+        params["base"][f"conv5_{i}"]["b"] = (
+            1e-2 * rng.randn(*b.shape)).astype(b.dtype)
+    before = _flat(params)
+    kw = dict(loss_type="triplet", lr=1e-2, momentum=0.9, weight_decay=1e-3,
+              use_pool_feature=True)
+    jtr = JTrainer(jmodel, **kw)
+    jopt = jtr.init(jax.tree.map(jnp.asarray, params))
+    model = _port_embednet(params)
+    tr = Trainer(model, **kw)
+    tr.init()
+    for i in range(2):
+        model.load_state_dict(params_from_jax(params))  # momentum kept
+        images = _tuple_images(i)
+        jp, jopt, jloss = jtr.step(jax.tree.map(jnp.asarray, params), jopt,
+                                   jnp.asarray(images))
+        loss = tr.step(images)
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+        jafter = _flat(jax.tree.map(np.asarray, jp))
+        after = _flat(params_to_jax(model.state_dict()))
+        assert {"vlad/centroids", "vlad/assign_w"} <= set(after)
+        for key, value in after.items():
+            if key.startswith("base/conv") and not key.startswith(
+                    "base/conv5"):
+                np.testing.assert_array_equal(value, before[key], key)
+                continue
+            up, jup = value - before[key], jafter[key] - before[key]
+            assert np.abs(jup).max() > 0, key
+            ulp = np.spacing(np.abs(before[key]).max())
+            np.testing.assert_allclose(up, jup, rtol=1e-3,
+                                       atol=1e-3 * np.abs(jup).max() + ulp,
+                                       err_msg=f"step {i} {key}")
+
+
 def test_frozen_parameters_never_reach_the_optimizer():
     _, params = _jax_embednet()
     model = _port_embednet(params)
@@ -264,8 +320,11 @@ def test_trainer_refuses_the_fused_head_and_unported_options():
         Trainer(model)
     plain = models.create("embednet", net_vlad=models.NetVLAD(num_clusters=K))
     assert Trainer(plain, device_jitter=True).device_jitter  # ported
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        Trainer(plain, mesh=object())
+    from openibl_tpu_torch.parallel.mesh import Mesh
+
+    # the data-parallel step is ported; a mesh must hold the model's device
+    with pytest.raises(ValueError, match="the mesh's rank on meta"):
+        Trainer(plain, mesh=Mesh(torch.device("meta")))
 
 
 @pytest.mark.parametrize("gamma,step_size", [(0.5, 5), (0.1, 2), (0.5, 1)])

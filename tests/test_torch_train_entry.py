@@ -68,8 +68,13 @@ def test_resume_continues_the_run(tmp_path):
 
 def test_pipeline_refuses_unported_paths(tmp_path):
     cfg = _cfg(tmp_path, "logs")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        pipeline.run_baseline_training(cfg, device="cpu", mesh=object())
+    from openibl_tpu_torch.parallel.mesh import Mesh
+
+    # the mesh branch is ported; its rank's device must be of the run's type
+    with pytest.raises(ValueError, match="mesh's device"):
+        pipeline.run_baseline_training(cfg, device="cpu",
+                                       mesh=Mesh(torch.device("meta")))
+    assert not osp.exists(cfg.data.data_dir)
 
 
 def test_no_card_raises_before_any_work(tmp_path, monkeypatch):
@@ -161,16 +166,76 @@ def _example(args, **kw):
          *args], capture_output=True, text=True, timeout=300, **kw)
 
 
+def _example_args(tmp_path, logs, init=None):
+    return ["-d", "synthetic", "--data-dir", str(tmp_path / "data"),
+            "--logs-dir", logs, "--init-dir", init or logs, "--height", "32",
+            "--width", "48", "--num-clusters", str(K), "--neg-num", "2",
+            "--features", "16", "--epochs", "1", "--test-batch-size", "8",
+            "--loss-type", "triplet", "--seed", "0", "--device", "cpu"]
+
+
+def _printed_recalls(stdout):
+    """The recall lines the evaluator printed after the PCA reduction."""
+    tail = stdout.split("Testing with PCA reduction:")[1]
+    return [line for line in tail.splitlines() if line.strip()
+            .startswith("top-")]
+
+
 def test_example_trains_on_the_cpu_and_jax_reads_its_checkpoint(tmp_path):
+    """The example as rank 0 of a one-rank torchrun launch: it joins a
+    gloo group and runs the pipeline's mesh branch with real collectives.
+    Its checkpoint equals, bit for bit, and its printed test recalls equal
+    those of the same config run in this process without a mesh (which
+    reads the centroid cache the example wrote); the JAX package reads the
+    checkpoint."""
+    import contextlib
+    import importlib.util
+    import io
+    import socket
+
+    from openibl_tpu_torch.engine.evaluator import _print_recalls
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SLURM_NTASKS", "SLURM_PROCID", "LOCAL_RANK")}
+    # two threads on both sides (the test workers share the host's cores):
+    # the same thread count keeps the two runs' sums in one order
+    env.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", OMP_NUM_THREADS="2")
     logs = str(tmp_path / "logs")
-    res = _example(["-d", "synthetic", "--data-dir", str(tmp_path / "data"),
-                    "--logs-dir", logs, "--init-dir", logs, "--height", "32",
-                    "--width", "48", "--num-clusters", str(K), "--neg-num",
-                    "2", "--features", "16", "--epochs", "1",
-                    "--test-batch-size", "8", "--loss-type", "triplet",
-                    "--seed", "0", "--device", "cpu"], cwd=str(tmp_path))
+    res = _example(_example_args(tmp_path, logs), cwd=str(tmp_path), env=env)
     assert res.returncode == 0, res.stderr
+    assert "mesh: 1 rank(s)" in res.stdout
     assert "Testing with PCA reduction:" in res.stdout
+
+    spec = importlib.util.spec_from_file_location(
+        "train_baseline_torch",
+        osp.join(ROOT, "examples", "train_baseline_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    _, cfg = example.parse(_example_args(tmp_path, str(tmp_path / "one"),
+                                         init=logs))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        _, recalls, _ = pipeline.run_baseline_training(cfg, device="cpu",
+                                                       verbose=False)
+    finally:
+        torch.set_num_threads(threads)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _print_recalls(recalls, (1, 5, 10))
+    assert _printed_recalls(res.stdout) == _printed_recalls(
+        "Testing with PCA reduction:\n" + printed.getvalue())
+    a = np.load(osp.join(logs, "model_best.npz"))
+    b = np.load(osp.join(cfg.logs_dir, "model_best.npz"))
+    keys = [k for k in a.files if k.startswith("leaf:")]
+    assert keys and sorted(keys) == sorted(k for k in b.files
+                                           if k.startswith("leaf:"))
+    for key in keys:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
     from openibl_tpu import models as jmodels
 
     jax = pytest.importorskip("jax")

@@ -96,6 +96,20 @@ SFRS gen-1 step (cuDNN off) from the same parameters, held to the
 one-process step on both tuples at the training gate and to each other
 bit for bit; each path's wall time and the gradient all-reduce's time
 (CUDA events) printed.
+Then mesh-sharded serving (phase 8b, after the served modes, on the
+served gallery and its OPQ m=64 codes): RetrievalService(mesh=) in a
+one-rank torchrun environment (NCCL), exact and PQ, against the
+single-device services' top-10 for the 32 planted queries, with its p50 at
+batch 1; then two gloo ranks on the one card (rank 0 serves, rank 1
+follows in lockstep), exact and PQ over 100,000 and 99,999 rows, each rank
+holding ceil(N/2) rows, against single-device answers, K2 on each rank's
+resident codes against the plain scorer, K1's launches on rank 0 and K2's
+on each rank, rank 0's p50 and the per-query cost of the lockstep header,
+the descriptor broadcast and the candidates' all-gather; then
+examples/serve_torch.py --n-devices 1 --pq under a one-rank torchrun
+(/healthz, one POST /query against the single-device PQ service, SIGTERM to
+rank 0, every rank's exit code 0); then graft_entry_torch's
+dryrun_multichip(2, backend="gloo") on the card and entry()'s descriptor.
 Beside the served path it measures what cuDNN's TF32 (on as
 PyTorch ships it) does to an f32 descriptor at 480x640 and to the top-10
 over the 100k gallery, through the model's parts and through the entry
@@ -109,8 +123,9 @@ layer's bias centres the VLADs on their mean over the bootstrap images, as
 a PCA fit does, because the raw random init maps every image to nearly the
 same descriptor. Each served
 path, the training run, the SFRS run, the two Tokyo eval runs, the
-mesh's sharded extraction, sharded eval and two-rank run and the
-torchrun training run run with the kernels' launch counts set to 0 just before and read just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
+mesh's sharded extraction, sharded eval and two-rank run, the
+torchrun training run and each mesh-served path (on rank 1, its whole
+follow(), warm-up and timed queries included) run with the kernels' launch counts set to 0 just before and read just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
 the same bits on a second run, and against its split-precision arithmetic
 run in plain PyTorch; K2 also at 3 and 17 queries. Prints timing
 lines (CUDA events, or the host clock for service.query) with the card's
@@ -145,6 +160,7 @@ import os
 import os.path as osp
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -907,8 +923,8 @@ def serve_modes(index, built, weights, images, rows, dev, card, serve_torch):
             check(k2 > 0, f"{name}: K2 launched {k2} times on the served "
                           f"path")
             k2_launches += k2
-        out[name] = {"recall": recall, "p50_ms": p50_query_ms(service,
-                                                              images)}
+        out[name] = {"recall": recall, "results": results,
+                     "p50_ms": p50_query_ms(service, images)}
         del service
         torch.cuda.empty_cache()
     return out, k2_launches
@@ -2388,6 +2404,32 @@ class Arrays:
         return self.images[i]
 
 
+def torchrun_env(port):
+    """A one-rank torchrun environment on ``port``; returns the values it
+    replaced, for ``restore_env``."""
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    return saved
+
+
+def restore_env(saved):
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def eval_model(ckpt, device):
     """``eval_view`` of the EmbedNet (K=64) of a JAX-layout checkpoint, on
     ``device``: K1 on the card."""
@@ -2475,7 +2517,6 @@ def mesh_phase(eval_tree, gallery, desc, rows, dev, card, seed, tmp):
     single-process results. K1's count is 0 just before each path and
     read just after. Returns K1's launches by path."""
     import multiprocessing
-    import socket
 
     import torch.distributed as dist
 
@@ -2496,13 +2537,7 @@ def mesh_phase(eval_tree, gallery, desc, rows, dev, card, seed, tmp):
     images = scenes(np.random.RandomState(seed + 5), 37)
     save_checkpoint(osp.join(tmp, "model.npz"), {"params": eval_tree})
     model = eval_model(osp.join(tmp, "model.npz"), dev)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
-               WORLD_SIZE="1", LOCAL_RANK="0")
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+    saved = torchrun_env(free_port())
     try:
         t0 = time.perf_counter()
         maybe_init_distributed(device=dev)
@@ -2599,11 +2634,7 @@ def mesh_phase(eval_tree, gallery, desc, rows, dev, card, seed, tmp):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        restore_env(saved)
     check(not dist.is_initialized(), "the NCCL process group is destroyed")
 
     # two ranks on the one card through gloo, against the results above
@@ -2760,7 +2791,6 @@ def mesh_train_phase(dev, card, seed, tmp, single):
     and the all-reduce's time. Returns K1's launches on the torchrun
     run."""
     import multiprocessing
-    import socket
 
     import torch.distributed as dist
 
@@ -2792,13 +2822,7 @@ def mesh_train_phase(dev, card, seed, tmp, single):
     check(same == cfg, "the example's command line gives the training "
                        "phase's config (its logs directory apart)")
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
-               WORLD_SIZE="1", LOCAL_RANK="0")
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+    saved = torchrun_env(free_port())
     losses, step = [], Trainer.step
 
     def counted_step(self, images, generator=None):
@@ -2828,11 +2852,7 @@ def mesh_train_phase(dev, card, seed, tmp, single):
             sys.stdout = stdout
         if dist.is_initialized():
             dist.destroy_process_group()
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        restore_env(saved)
     check(not dist.is_initialized(), "the NCCL process group is destroyed")
     ours = ([float(x) for x in losses],
             {k: v.detach().cpu().double()
@@ -2931,6 +2951,346 @@ def mesh_train_phase(dev, card, seed, tmp, single):
         del model
     torch.cuda.empty_cache()
     return launches
+
+
+def matches_di(results):
+    """A service's match lists → (sq_dists, indices) tensors (Q, k)."""
+    return (torch.tensor([[m["sq_dist"] for m in r] for r in results]),
+            torch.tensor([[m["index"] for m in r] for r in results]))
+
+
+def serve_cases(inputs, gallery):
+    """The mesh_serve phase's two-rank cases: (name, index, service
+    options, rows) for the exact and PQ index over the whole gallery and
+    over all rows but the last (a ragged split: the last rank's shard is
+    padded)."""
+    pq = {k: inputs[k] for k in ("pq_codes", "pq_codebooks", "pq_rotation")}
+    cases = []
+    for n in (len(gallery), len(gallery) - 1):
+        cases.append((f"exact_{n}", {"descriptors": gallery[:n]}, {}, n))
+        cases.append((f"pq_{n}", {**pq, "pq_codes": pq["pq_codes"][:n]},
+                      {"use_pq": True}, n))
+    return cases
+
+
+def mesh_serve_rank(rank, tmp, seed, device):
+    """One of the mesh_serve phase's two gloo ranks on the one card: every
+    case of ``serve_cases`` as a RetrievalService(mesh=) (rank 0 queries
+    the planted images, rank 1 follows), each rank's resident rows, K2's
+    and K1's launches on the served path, each rank's K2 on its resident
+    codes against the plain scorer, rank 0's p50 at batch 1, and the
+    per-query cost of the lockstep header, the descriptor broadcast and
+    the candidates' all-gather (host clock on rank 0); results to
+    ``tmp``/serve_rank<r>.npz."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.ops import pq_kernel as pk
+    from openibl_tpu_torch.ops.distance import merge_across_ranks
+    from openibl_tpu_torch.ops.pq import _split_subspaces, _sub_d2
+    from openibl_tpu_torch.parallel.mesh import Lockstep, get_mesh
+    from openibl_tpu_torch.serving import RetrievalService
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/serve_store",
+                            rank=rank, world_size=2)
+    out = {}
+    try:
+        mesh = get_mesh(2, device=device)
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        inputs = np.load(osp.join(tmp, "serve_inputs.npz"))
+        desc = torch.from_numpy(inputs["desc"]).to(mesh.device)
+        n_rows, images = int(inputs["n_rows"]), inputs["images"]
+        # the served gallery, made from its seed as the parent made it,
+        # then held on the host: each service keeps only its rank's rows
+        gallery = planted_gallery(mesh.device, seed, inputs["rows"], desc,
+                                  n_rows).cpu().numpy()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        for name, idx, kw, n in serve_cases(inputs, gallery):
+            svc = RetrievalService(idx, weights=str(inputs["weights"]),
+                                   height=images.shape[1],
+                                   width=images.shape[2], mesh=mesh,
+                                   device=mesh.device, **kw)
+            out[f"{name}:rows"] = svc._gallery.shape[0]
+            if rank:
+                pk.adc_tile.launches = 0  # the follower's path starts
+                svc.follow()
+                out[f"{name}:k2"] = pk.adc_tile.launches  # ... and ends
+            else:
+                svc.warmup()
+                nk.netvlad_fused.launches = pk.adc_tile.launches = 0
+                d, i = matches_di(svc.query(list(images), topk=10))
+                out[f"{name}:k1"] = nk.netvlad_fused.launches
+                out[f"{name}:k2"] = pk.adc_tile.launches
+                out[f"{name}:d"], out[f"{name}:i"] = d.numpy(), i.numpy()
+                if n == n_rows:
+                    out[f"{name}:p50"] = p50_query_ms(svc, images)
+                svc.close()
+            if name == f"pq_{n_rows}":
+                # K2 on this rank's resident codes against the plain scorer
+                q = desc @ svc._pq_rotation
+                lut = _sub_d2(_split_subspaces(q, svc._gallery.shape[1]),
+                              svc._pq_codebooks).contiguous()
+                got = pk.adc_tile(lut, svc._gallery)
+                ref = pk.adc_tile_plain(lut, svc._gallery)
+                sync()
+                out["k2_err"] = float((got - ref).abs().max())
+                out["k2_close"] = bool(torch.allclose(got, ref, rtol=K2_TOL,
+                                                      atol=K2_TOL))
+            del svc
+        # what one batch-1 query adds on rank 0's path: the header, the
+        # (1, 4096) descriptors' broadcast, the candidates' all-gather
+        lockstep = Lockstep(mesh)
+        one = desc[:1].contiguous()
+        cand_d = torch.rand((1, 10), device=mesh.device)
+        cand_i = torch.arange(10, device=mesh.device)[None]
+        parts = {"header": lambda: (lockstep.send(1, 1, 10) if rank == 0
+                                    else lockstep.recv()),
+                 "broadcast": lambda: dist.broadcast(one, src=0),
+                 "all_gather": lambda: merge_across_ranks(mesh, cand_d,
+                                                          cand_i, 10)}
+        for part, fn in parts.items():
+            times = []
+            for _ in range(60):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[f"{part}_ms"] = statistics.median(times[10:])
+        out["device"] = str(mesh.device)
+        np.savez(osp.join(tmp, f"serve_rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_serve_phase(index, built, weights, images, rows, desc, single, dev,
+                     card, seed, tmp):
+    """(s) Mesh-sharded serving on the card. World size 1 through NCCL (a
+    one-rank torchrun environment): RetrievalService(mesh=) over the
+    100,000 x 4096 gallery (exact) and its OPQ m=64 codes (PQ), the planted
+    queries' top-10 against the single-device services' (``single``), K1
+    and K2 counted, p50 at batch 1. Then two gloo ranks on the card
+    (``mesh_serve_rank``; rank 0 serves, rank 1 follows) over 100,000 and
+    99,999 rows, against single-device searches of the same descriptors.
+    Then examples/serve_torch.py --n-devices 1 under a one-rank torchrun:
+    /healthz, one POST /query against the single-device PQ service,
+    SIGTERM to rank 0 and every rank's clean exit. Then
+    graft_entry_torch.dryrun_multichip(2, backend="gloo") and entry().
+    Returns {path: launches} for K1 and for K2."""
+    import multiprocessing
+
+    import torch.distributed as dist
+
+    from graft_entry_torch import dryrun_multichip, entry
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.ops import pq_kernel as pk
+    from openibl_tpu_torch.ops.distance import topk_nearest
+    from openibl_tpu_torch.ops.pq import pq_search
+    from openibl_tpu_torch.parallel.mesh import (get_mesh,
+                                                 maybe_init_distributed)
+    from openibl_tpu_torch.serving import RetrievalService
+
+    k1, k2, errs = {}, {}, []
+    paths, gallery = index["paths"], index["descriptors"]
+    opq = built["opq"]
+    served = {"exact": ({"descriptors": gallery, "paths": paths}, {}),
+              "pq": ({"paths": paths, **opq}, {"use_pq": True})}
+    tie = {"exact": 1e-5, "pq": 1e-3}
+
+    # -- world size 1 through NCCL -------------------------------------------
+    saved = torchrun_env(free_port())
+    try:
+        maybe_init_distributed(device=dev)
+        mesh = get_mesh(device=dev)
+        check(dist.get_backend() == "nccl" and mesh.size == 1,
+              "mesh_serve: a one-rank NCCL group")
+        for mode, (idx, kw) in served.items():
+            t0 = time.perf_counter()
+            svc = RetrievalService(idx, weights=weights, height=H, width=W,
+                                   mesh=mesh, device=dev, **kw)
+            svc.warmup()
+            torch.cuda.synchronize()
+            built_s = time.perf_counter() - t0
+            nk.netvlad_fused.launches = pk.adc_tile.launches = 0  # starts
+            d, i = matches_di(svc.query(list(images), topk=10))
+            k1[f"mesh_serve_{mode}_nccl"] = nk.netvlad_fused.launches
+            if mode == "pq":
+                k2["mesh_serve_pq_nccl"] = pk.adc_tile.launches  # ends
+            sd, si = matches_di(single[mode])
+            check(*same_top10_up_to_cut(
+                d, i, sd, si, f"RetrievalService(mesh=) {mode} (NCCL, world "
+                f"size 1, {svc._gallery.shape[0]} resident rows) vs the "
+                f"single-device service, {len(images)} planted queries",
+                tie[mode]))
+            check(nk.netvlad_fused.launches > 0 and (
+                mode == "exact" or pk.adc_tile.launches > 0),
+                f"mesh_serve {mode} (NCCL): K1 launched "
+                f"{nk.netvlad_fused.launches} times, K2 "
+                f"{pk.adc_tile.launches}")
+            p50 = p50_query_ms(svc, images)
+            print(f"timing mesh_serve {mode} (NCCL, world size 1) batch 1, "
+                  f"top-10 of {GALLERY}: p50 {p50:.4f} ms, single-device "
+                  f"p50 {single[mode + '_p50']:.4f} ms (host clock, 25 "
+                  f"queries; built and warmed in {built_s:.2f} s) [{card}]")
+            svc.close()
+            del svc
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        restore_env(saved)
+    check(not dist.is_initialized(), "the NCCL process group is destroyed")
+
+    # -- two gloo ranks on the one card --------------------------------------
+    np.savez(osp.join(tmp, "serve_inputs.npz"), images=images,
+             desc=desc.cpu().numpy(), rows=np.asarray(rows),
+             n_rows=len(gallery), weights=np.asarray(weights), **opq)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_serve_rank, args=(r, tmp, seed,
+                                                       dev.type))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"mesh_serve: two gloo ranks on the one card ran to their end: "
+          f"exit codes {[p.exitcode for p in procs]} "
+          f"({time.perf_counter() - t0:.2f} s with start-up)")
+    outs = [dict(np.load(osp.join(tmp, f"serve_rank{r}.npz")))
+            for r in range(2)]
+    g_dev = torch.from_numpy(gallery).to(dev)
+    codes = torch.from_numpy(opq["pq_codes"]).to(dev)
+    for name, _, _, n in serve_cases(opq, gallery):
+        mode = name.split("_")[0]
+        per = -(-n // 2)
+        check(all(int(o[f"{name}:rows"]) == per for o in outs),
+              f"mesh_serve {name}: each rank holds {per} of {n} rows on the "
+              f"card ({[int(o[f'{name}:rows']) for o in outs]})")
+        if n == GALLERY:
+            sd, si = matches_di(single[mode])
+        elif mode == "exact":
+            sd, si = topk_nearest(desc, g_dev[:n], k=10)
+        else:
+            sd, si = pq_search(desc, codes[:n], opq["pq_codebooks"], k=10,
+                               rotation=opq["pq_rotation"])
+        d = torch.from_numpy(outs[0][f"{name}:d"])
+        i = torch.from_numpy(outs[0][f"{name}:i"])
+        check(bool((i < n).all() & (i >= 0).all()),
+              f"mesh_serve {name}: every id is a real row (< {n})")
+        check(*same_top10_up_to_cut(
+            d, i, sd, si, f"RetrievalService(mesh=) {name} on 2 gloo ranks "
+            f"vs single-device, {len(images)} planted queries", tie[mode]))
+        k1[f"mesh_serve_{name}_gloo_rank0"] = int(outs[0][f"{name}:k1"])
+        check(k1[f"mesh_serve_{name}_gloo_rank0"] > 0,
+              f"mesh_serve {name}: K1 launched "
+              f"{k1[f'mesh_serve_{name}_gloo_rank0']} times on rank 0")
+        if mode == "pq":
+            for r, o in enumerate(outs):
+                k2[f"mesh_serve_{name}_gloo_rank{r}"] = int(o[f"{name}:k2"])
+            check(all(int(o[f"{name}:k2"]) > 0 for o in outs),
+                  f"mesh_serve {name}: K2 launched "
+                  f"{[int(o[f'{name}:k2']) for o in outs]} times on ranks "
+                  f"0 and 1")
+    for r, o in enumerate(outs):
+        errs.append(float(o["k2_err"]))
+        check(bool(o["k2_close"]),
+              f"mesh_serve rank {r}: K2 on its {int(o[f'pq_{GALLERY}:rows'])}"
+              f" resident codes == plain scorer, max_abs_err "
+              f"{float(o['k2_err']):.3g} (rtol/atol {K2_TOL})")
+    print(f"timing mesh_serve 2 gloo ranks on one card, rank 0, batch 1, "
+          f"top-10 of {GALLERY}: p50 exact "
+          f"{float(outs[0][f'exact_{GALLERY}:p50']):.4f} ms, PQ "
+          f"{float(outs[0][f'pq_{GALLERY}:p50']):.4f} ms (single-device "
+          f"{single['exact_p50']:.4f}, {single['pq_p50']:.4f}); per query: "
+          f"header {float(outs[0]['header_ms']):.4f} ms, descriptor "
+          f"broadcast {float(outs[0]['broadcast_ms']):.4f} ms, candidates' "
+          f"all-gather {float(outs[0]['all_gather_ms']):.4f} ms (host "
+          f"clock, medians of 50) [{card}]")
+    del g_dev, codes
+    torch.cuda.empty_cache()
+
+    # -- examples/serve_torch.py under a one-rank torchrun --------------------
+    idx_path = osp.join(tmp, "pq_index.npz")
+    np.savez(idx_path, paths=paths, **opq)
+    http_port = free_port()
+    log_path = osp.join(tmp, "serve_torchrun.log")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                        "LOCAL_RANK")}
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node=1", f"--master-port={free_port()}",
+             osp.join(ROOT, "examples", "serve_torch.py"), idx_path,
+             "--weights", weights, "--pq", "--n-devices", "1",
+             "--height", str(H), "--width", str(W),
+             "--port", str(http_port), "--device", dev.type],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    try:
+        base = f"http://127.0.0.1:{http_port}"
+        health, deadline = None, time.time() + 300
+        while health is None and time.time() < deadline \
+                and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(base + "/healthz",
+                                            timeout=5) as r:
+                    health = json.loads(r.read())
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        check(health == {"ok": True, "index_size": GALLERY},
+              f"serve_torch.py --n-devices 1 under torchrun: /healthz "
+              f"{health} after {up_s:.2f} s")
+        buf = io.BytesIO()
+        Image.fromarray(images[0]).save(buf, format="PNG")
+        req = urllib.request.Request(base + "/query?topk=10",
+                                     data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got = json.loads(r.read())["matches"]
+        d, i = matches_di([got])
+        sd, si = matches_di(single["pq"][:1])
+        check(*same_top10_up_to_cut(
+            d, i, sd, si, "serve_torch.py --n-devices 1 POST /query vs the "
+            "single-device PQ service, image 0", tie["pq"]))
+        pid = int(re.search(r"pid (\d+)", open(log_path).read()).group(1))
+        os.kill(pid, signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = open(log_path).read()
+    check(rc == 0 and "stopping" in text,
+          f"serve_torch.py under torchrun: SIGTERM to rank 0 closed the "
+          f"service and every rank exited 0 (torchrun exit code {rc})")
+
+    # -- the dry-run twin on the card, and entry() ----------------------------
+    t0 = time.perf_counter()
+    dryrun_multichip(2, device=dev.type, backend="gloo")
+    dry_s = time.perf_counter() - t0
+    fn, args = entry(dev)
+    with torch.inference_mode():
+        out = fn(*args)
+    norm = float(out.norm())
+    check(tuple(out.shape) == (1, DIM) and bool(out.isfinite().all())
+          and abs(norm - 1) < 1e-4,
+          f"graft_entry_torch: dryrun_multichip(2, backend='gloo') passed "
+          f"on the card in {dry_s:.2f} s; entry() gives a "
+          f"{tuple(out.shape)} descriptor of norm {norm:.6f}")
+    del fn, args, out
+    torch.cuda.empty_cache()
+    return k1, k2, max(errs)
 
 
 def main():
@@ -3133,6 +3493,16 @@ def run(dev, seed=0):
         modes, k2_launches = serve_modes(index, built, weights, images, rows,
                                          dev, card, serve_torch)
 
+        # -- phase 8b (s): mesh-sharded serving: NCCL at world size 1, two
+        # gloo ranks, the example under torchrun, the dry-run twin --------
+        single = {"exact": results, "exact_p50": exact_p50,
+                  "pq": modes["pq"]["results"],
+                  "pq_p50": modes["pq"]["p50_ms"]}
+        k1_mesh_serve, k2_mesh_serve, k2_mesh_err = mesh_serve_phase(
+            index, built, weights, images, rows, desc_k1, single, dev, card,
+            seed, tmp)
+        del single
+
     # -- phase 9 (d): timings of the served modes and the searches ----------
     for mode, r in {"exact": {"p50_ms": exact_p50}, **modes}.items():
         print(f"timing service.query {mode} batch 1, top-10 of {GALLERY}: "
@@ -3188,18 +3558,21 @@ def run(dev, seed=0):
          "replaces": "openibl_tpu/ops/netvlad_kernel.py:74",
          "launches": (k1_launches + k1_quant + train_launches
                       + sfrs_launches + tokyo_launches + rerank_launches
-                      + sum(mesh_launches.values())),
+                      + sum(mesh_launches.values())
+                      + sum(k1_mesh_serve.values())),
          "launches_by_path": {"serve_exact": k1_launches,
                               "serve_exact_quant": k1_quant,
                               "train": train_launches,
                               "sfrs": sfrs_launches,
                               "tokyo_eval": tokyo_launches,
                               "tokyo_eval_rerank": rerank_launches,
-                              **mesh_launches}, **k1},
+                              **mesh_launches, **k1_mesh_serve}, **k1},
         {"name": "pq_adc", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/pq_adc.cu",
          "replaces": "openibl_tpu/ops/pq_kernel.py:84",
-         "launches": k2_launches, **k2},
+         "launches": k2_launches + sum(k2_mesh_serve.values()),
+         "launches_by_path": {"serve_modes": k2_launches, **k2_mesh_serve},
+         **k2, "max_abs_err": max(k2["max_abs_err"], k2_mesh_err)},
         *probes,
         {"name": "int8_conv", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/quant_conv.cu",

@@ -13,9 +13,10 @@ negatives from one f32 (S, G) distance matrix, with TF32 off as the JAX
 package's ``Precision.HIGHEST`` asks; ``rank_positives`` orders each
 anchor's positives nearest first, and ``mine_hard_tuples_ranked`` does
 both from one shared matrix (the SFRS refresh). ``topk_nearest_sharded``
-splits the gallery over the ranks of a mesh (parallel.mesh): each rank
-searches its rows and one all-gather of (distance, index) candidates
-merges them.
+splits the gallery over the ranks of a mesh (parallel.mesh), or searches
+each rank's resident shard: each rank searches its rows and one
+all-gather of (distance, index) candidates merges them
+(``merge_across_ranks``, shared with ``ops.pq.pq_search_sharded``).
 """
 
 import os
@@ -166,38 +167,11 @@ def topk_nearest(query, gallery, k, chunk=None, full_path=None,
     return best_d, best_i
 
 
-def topk_nearest_sharded(query, gallery, mesh, k, chunk=None,
-                         gallery_scale=None, gallery_sqnorm=None):
-    """k nearest neighbours with the gallery sharded over the ranks of
-    ``mesh`` (parallel.mesh.Mesh).
-
-    ``gallery`` (G, D) is the same on every rank (numpy or a tensor on any
-    device), G a multiple of the world size: rank r moves rows
-    [r·G/n, (r+1)·G/n) to its device and runs ``topk_nearest`` over them
-    (k and ``chunk`` capped at G/n). The per-rank (Q, k) candidates, their
-    indices made global, are all-gathered and the k smallest kept, so no
-    rank holds more than G/n rows or ever forms Q x G.
-    ``gallery_scale`` (int8 rows) and ``gallery_sqnorm`` (G,) are sharded
-    like the gallery. Returns (dists (Q, k), global indices (Q, k)) on
-    ``mesh.device``, the same on every rank.
-    """
-    g_total = gallery.shape[0]
-    if g_total % mesh.size:
-        raise ValueError(f"gallery size {g_total} not divisible by "
-                         f"{mesh.size}")
-    per = g_total // mesh.size
-    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
-
-    def shard(a):
-        return None if a is None else torch.as_tensor(a[rows]).to(
-            mesh.device)
-
-    d, idx = topk_nearest(
-        torch.as_tensor(query).to(mesh.device), shard(gallery),
-        k=min(k, per), chunk=None if chunk is None else min(chunk, per),
-        gallery_scale=shard(gallery_scale),
-        gallery_sqnorm=shard(gallery_sqnorm))
-    idx = idx + mesh.rank * per
+def merge_across_ranks(mesh, d, idx, k):
+    """The k smallest of every rank's (Q, k_local) candidates (``d`` with
+    their global indices ``idx``, the same shapes on each rank): one
+    all-gather of each over the mesh's group, then a top-k. The result is
+    the same on every rank; without a group it is the top-k of ``d``."""
     q_n, k_local = d.shape
 
     def across_ranks(x):  # (Q, k_local) per rank → (Q, n · k_local)
@@ -207,6 +181,50 @@ def topk_nearest_sharded(query, gallery, mesh, k, chunk=None,
     d_all = across_ranks(d)
     best_d, pos = _smallest(d_all, min(k, d_all.shape[1]))
     return best_d, torch.gather(across_ranks(idx), 1, pos)
+
+
+def topk_nearest_sharded(query, gallery, mesh, k, chunk=None,
+                         gallery_scale=None, gallery_sqnorm=None,
+                         resident=False):
+    """k nearest neighbours with the gallery sharded over the ranks of
+    ``mesh`` (parallel.mesh.Mesh).
+
+    ``gallery`` (G, D) is the same on every rank (numpy or a tensor on any
+    device), G a multiple of the world size: rank r moves rows
+    [r·G/n, (r+1)·G/n) to its device and runs ``topk_nearest`` over them
+    (k and ``chunk`` capped at G/n). With ``resident=True`` ``gallery`` is
+    already this rank's shard, rows [r·S, (r+1)·S) of the whole for a shard
+    of S rows, on its device, with ``gallery_scale`` / ``gallery_sqnorm``
+    its own rows too: nothing is sliced or copied (a service's index). The
+    per-rank (Q, k) candidates, their indices made global, are merged by
+    ``merge_across_ranks``, so no rank holds more than G/n rows or ever
+    forms Q x G. ``gallery_scale`` (int8 rows) and ``gallery_sqnorm`` (G,)
+    are sharded like the gallery. Returns (dists (Q, k), global indices
+    (Q, k)) on ``mesh.device``, the same on every rank.
+    """
+    if resident:
+        per = gallery.shape[0]
+
+        def shard(a):
+            return a
+    else:
+        g_total = gallery.shape[0]
+        if g_total % mesh.size:
+            raise ValueError(f"gallery size {g_total} not divisible by "
+                             f"{mesh.size}")
+        per = g_total // mesh.size
+        rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+        def shard(a):
+            return None if a is None else torch.as_tensor(a[rows]).to(
+                mesh.device)
+
+    d, idx = topk_nearest(
+        torch.as_tensor(query).to(mesh.device), shard(gallery),
+        k=min(k, per), chunk=None if chunk is None else min(chunk, per),
+        gallery_scale=shard(gallery_scale),
+        gallery_sqnorm=shard(gallery_sqnorm))
+    return merge_across_ranks(mesh, d, idx + mesh.rank * per, k)
 
 
 def _pos_distances(d2, pos_idx):

@@ -1,5 +1,5 @@
 """Product-quantized (PQ) descriptor index with ADC search (port of
-openibl_tpu/ops/pq.py, single device).
+openibl_tpu/ops/pq.py).
 
 Each D-dim descriptor splits into ``m`` subvectors, each stored as one uint8
 codebook id: m bytes per descriptor, 256x smaller than f32 at D=4096, m=64.
@@ -19,7 +19,10 @@ search", TPAMI 2011). Around it:
   * IVFADC (``build_ivfpq`` / ``ivfpq_search``) encodes residuals to IVF
     cells and probes nprobe cells, scoring each cell's codes with a plain
     gather (as the JAX package leaves it to XLA's take_along_axis);
-  * ``pq_search_rerank`` re-ranks an ADC shortlist by exact distance.
+  * ``pq_search_rerank`` re-ranks an ADC shortlist by exact distance;
+  * ``pq_search_sharded`` splits the codes over the ranks of a mesh
+    (parallel.mesh): each rank scores its rows through ``pq_search`` and
+    one all-gather merges the candidates, the padded rows masked.
 
 Build functions return numpy arrays (the arrays an index .npz carries);
 they accept numpy (run on the CPU) or tensors (run on their device). Search
@@ -28,13 +31,12 @@ k-means++ come from a ``torch.Generator``: they cannot reproduce
 ``jax.random``'s bits, so trained codebooks differ from the JAX package's
 for one seed while meeting the same quality gates. Products are f32 (the
 JAX package's ``Precision.HIGHEST``), with TF32 off as PyTorch's default.
-The mesh-sharded ``pq_search_sharded`` is not ported (ROADMAP Queue 1
-item 12c).
 """
 
 import numpy as np
 import torch
 
+from openibl_tpu_torch.ops.distance import merge_across_ranks
 from openibl_tpu_torch.ops.ivf import (
     _candidate_d2, _merge, _probe_cells, build_ivf)
 from openibl_tpu_torch.ops.pq_kernel import adc_tile
@@ -426,3 +428,51 @@ def pq_search(query, codes, codebooks, k, chunk=None, precise=False,
             td, ti = _merge(best_d, best_i, td, ti, k)
         best_d, best_i = td, ti
     return best_d, best_i
+
+
+def pq_search_sharded(query, codes, codebooks, mesh, k, chunk=None,
+                      precise=False, rotation=None, total=None):
+    """Exhaustive-ADC k-NN with the code matrix split over the ranks of
+    ``mesh`` (parallel.mesh.Mesh): the tier above one card's codes.
+
+    ``query`` (Q, D) is the same on every rank; the OPQ ``rotation`` is
+    applied to it once, then each rank runs ``pq_search`` (K2 on a CUDA
+    device) over its ceil(N/n) rows for ``min(k + pad, per)`` candidates,
+    makes their ids global and masks the zero-padded rows to (+inf, -1)
+    by global index before ``merge_across_ranks``: zero codes decode to
+    real codebook entries, so a padded row could otherwise win.
+
+    ``codes`` is either the whole (N, m) uint8 matrix (numpy or a tensor,
+    the same on every rank: each rank moves its rows to ``mesh.device``,
+    zero-padded to ceil(N/n)), or, with ``total=N``, this rank's resident
+    shard: rows [r·per, (r+1)·per) of the whole, zero-padded past N, on
+    its device. Returns (adc sq_dists (Q, k), global indices (Q, k)) on
+    ``mesh.device``, the same on every rank.
+    """
+    if total is None:
+        n = codes.shape[0]
+        per = -(-n // mesh.size)
+        shard = torch.as_tensor(
+            codes[mesh.rank * per:(mesh.rank + 1) * per]).to(mesh.device)
+        if shard.shape[0] < per:
+            shard = torch.cat([shard, shard.new_zeros(
+                (per - shard.shape[0], shard.shape[1]))])
+    else:
+        n, shard = int(total), torch.as_tensor(codes)
+        per = shard.shape[0]
+        if per * mesh.size < n:
+            raise ValueError(f"{mesh.size} shards of {per} rows cannot "
+                             f"hold {n} codes")
+    pad = per * mesh.size - n
+    k = int(min(k, n))
+    q = _as_f32(query, shard.device)
+    if rotation is not None:
+        q = torch.matmul(q, _as_f32(rotation, shard.device))
+    d, idx = pq_search(q, shard, codebooks, k=min(k + pad, per),
+                       chunk=None if chunk is None else min(chunk, per),
+                       precise=precise)
+    gidx = idx + mesh.rank * per
+    fake = gidx >= n
+    d = torch.where(fake, float("inf"), d)
+    gidx = torch.where(fake, -1, gidx)
+    return merge_across_ranks(mesh, d, gidx, k)

@@ -32,6 +32,16 @@ The JAX package's placement helpers (its ``parallel/mesh.py``) map to:
 ``barrier`` orders a file write before its readers, ``check_replicated``
 and ``check_same_on_every_rank`` raise where the ranks disagree. Without a
 group (world size 1) each helper does nothing.
+
+``Lockstep`` is what serving adds. One JAX process drives every device, so
+a request reaches every shard of the index for free; here a request
+reaches rank 0 alone, and the other ranks must take it up before any
+collective of its search runs. Rank 0 leads: for each batch it sends a
+small header (an op code, and the batch's size and k) over a gloo group of
+its own whose timeout is a year, so a follower may wait for the next
+request as long as the service stays idle; an NCCL collective left waiting
+past the group's timeout is aborted by its watchdog. The batch's data
+then goes over the mesh's own group.
 """
 
 import dataclasses
@@ -173,6 +183,44 @@ def process_local_mesh(mesh):
     """This rank's own sub-mesh: its device alone (rank 0 of 1, no group;
     None for no mesh). Phases that every rank runs whole take it."""
     return None if mesh is None else Mesh(mesh.device)
+
+
+class Lockstep:
+    """The channel on which rank 0 of ``mesh`` tells the other ranks what
+    to run next: ``send(op, *args)`` on rank 0, ``recv()`` (blocking,
+    returns ``(op, *args)``) on the others. Each message is ``SIZE`` int64
+    values, ``op`` first, over a gloo group made for it with ``TIMEOUT``
+    (every rank of the default group must build a ``Lockstep`` together).
+    Without followers (world size 1) there is no group and nothing is
+    sent. The group lives as long as the default one."""
+
+    SIZE = 4
+    # gloo waits with this timeout on each receive; ~10 years overflow its
+    # deadline arithmetic, a year does not
+    TIMEOUT = datetime.timedelta(days=365)
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.group = None
+        if mesh.group is not None and mesh.size > 1:
+            self.group = dist.new_group(backend="gloo", timeout=self.TIMEOUT)
+
+    def send(self, op, *args):
+        if self.mesh.rank != 0:
+            raise RuntimeError("only rank 0 leads the lockstep")
+        if self.group is None:
+            return
+        msg = torch.zeros(self.SIZE, dtype=torch.int64)
+        msg[:1 + len(args)] = torch.tensor((op, *args), dtype=torch.int64)
+        dist.broadcast(msg, src=0, group=self.group)
+
+    def recv(self):
+        if self.mesh.rank == 0 or self.group is None:
+            raise RuntimeError("rank 0 leads the lockstep; it receives "
+                               "nothing")
+        msg = torch.empty(self.SIZE, dtype=torch.int64)
+        dist.broadcast(msg, src=0, group=self.group)
+        return tuple(msg.tolist())
 
 
 def pad_to_multiple(n, m):

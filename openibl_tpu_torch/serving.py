@@ -1,5 +1,5 @@
 """Long-lived retrieval service: warm model + device-resident descriptor index
-(port of openibl_tpu/serving.py, single device).
+(port of openibl_tpu/serving.py).
 
   * the EmbedNetPCA descriptor model stays loaded on the device;
   * the gallery (descriptors + payload paths) lives on the device across
@@ -12,28 +12,44 @@
 
 With ``quant_backbone`` the model's VGG16 runs mixed float/int8
 (ops/quant.py: the float prefix through cuDNN, conv2_1..conv5_3 through
-kernel K3 on the card), calibrated on ``calib_images``. Mesh sharding is not
-ported yet; asking for it raises NotImplementedError naming its ROADMAP
-item. examples/serve_torch.py wraps the service in a stdlib HTTP server.
+kernel K3 on the card), calibrated on ``calib_images``.
+
+With a ``mesh`` (parallel.mesh: one process a device) the index is split
+over the ranks: each keeps ceil(N/n) rows (exact, f16, int8 with their
+scales and squared norms) or PQ codes on its device, and every batch is
+searched by all ranks at once (``topk_nearest_sharded`` /
+``pq_search_sharded``: K2 on each rank's codes), one all-gather merging
+their candidates. Only rank 0 holds the model and answers requests; for
+each batch it sends a header over the mesh's ``Lockstep`` and broadcasts
+the (B, D) descriptors, while the other ranks sit in ``follow()`` until
+rank 0's ``close()``. examples/serve_torch.py wraps the service in a
+stdlib HTTP server.
 """
 
+import contextlib
 import os
 import threading
 import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from PIL import Image
 
 from openibl_tpu_torch.data.transforms import TestTransform
 from openibl_tpu_torch.hub import vgg16_netvlad
-from openibl_tpu_torch.ops.distance import quantize_index_int8, topk_nearest
+from openibl_tpu_torch.ops.distance import (
+    quantize_index_int8, topk_nearest, topk_nearest_sharded)
 from openibl_tpu_torch.ops.ivf import ivf_search
-from openibl_tpu_torch.ops.pq import ivfpq_search, pq_search, pq_search_rerank
+from openibl_tpu_torch.ops.pq import (
+    ivfpq_search, pq_search, pq_search_rerank, pq_search_sharded)
 from openibl_tpu_torch.ops.quant import quantize_model_params
+from openibl_tpu_torch.parallel.mesh import (
+    Lockstep, check_same_on_every_rank, run_device)
 from openibl_tpu_torch.utils import f32_precision
 
 _BATCH_BUCKETS = (1, 4, 16)
+_QUERY, _STOP = 1, 2  # the lockstep's op codes
 
 
 def _row_sqnorms(gallery, scales=None, chunk=8192):
@@ -56,10 +72,14 @@ def _ivf_beats_exact(batch, nprobe, maxlen, index_size):
     return batch * nprobe * maxlen < index_size
 
 
-def _not_ported(what, item):
-    raise NotImplementedError(
-        f"{what} is not ported to openibl_tpu_torch yet: ROADMAP Queue 1 "
-        f"item {item}")
+def _rank_rows(a, mesh):
+    """A copy of rank ``mesh.rank``'s ceil(N/n) rows of ``a``, zero-padded
+    past N."""
+    per = -(-a.shape[0] // mesh.size)
+    out = np.zeros((per,) + a.shape[1:], a.dtype)
+    rows = a[mesh.rank * per:(mesh.rank + 1) * per]
+    out[:len(rows)] = rows
+    return out
 
 
 def _select_gallery(index, use_pq, pq_rerank, ivf_nprobe, quantize_int8):
@@ -147,8 +167,15 @@ class RetrievalService:
         noise, with a warning: real-scene activations can exceed
         noise-derived maxima and clip.
       device: where the model and the index live: the card by default;
-        without one this raises unless ``device="cpu"``.
-      mesh: not ported (ROADMAP Queue 1 item 12c).
+        without one this raises unless ``device="cpu"``. With a mesh, its
+        rank's device (of the same type).
+      mesh: a ``parallel.mesh.Mesh``: the index is split over its ranks
+        (plain PQ and the exact index; IVF with exact descriptors serves
+        exact, IVFADC and ``pq_rerank`` fall back to rank 0 alone, each
+        with a warning, as in the JAX service). Every rank builds the
+        service with the same arguments; rank 0 then serves
+        (``query``/``warmup``) and the others call ``follow()``. Rank 0's
+        ``close()`` ends them.
     """
 
     def __init__(self, index, weights=None, height=480, width=640,
@@ -159,8 +186,6 @@ class RetrievalService:
         if isinstance(index, (str, bytes, os.PathLike)):
             with np.load(index, allow_pickle=False) as data:
                 index = {k: data[k] for k in data.files}
-        if mesh is not None:
-            _not_ported("mesh-sharded serving", "12c")
         self.paths = [str(p) for p in index.get("paths", [])]
         self.pq_rerank = int(pq_rerank)
         self.ivf_nprobe = int(ivf_nprobe)
@@ -181,6 +206,24 @@ class RetrievalService:
                 gallery, scales = quantize_index_int8(gallery)
             elif gallery.dtype != np.float16:
                 gallery = gallery.astype(np.float32, copy=False)
+        self.device = run_device(device, mesh)
+        # rank 0 serves; the ranks of a mesh that falls back to one device
+        # hold nothing
+        self.rank = 0 if mesh is None else mesh.rank
+        self.leader = self.rank == 0
+        # the JAX service's fall-backs, in its order and words: IVFADC and
+        # the exact re-rank have no sharded variant, IVF over exact rows
+        # serves the exact sharded search
+        if (self.pq_rerank or (self.use_pq and self.ivf_nprobe)) \
+                and mesh is not None:
+            warnings.warn(
+                "IVFADC / pq_rerank serving is single-device; serving "
+                "from the default device", stacklevel=2)
+            mesh = None
+        if self.ivf_nprobe and mesh is not None:
+            warnings.warn("IVF serving is single-device; using the exact "
+                          "sharded search instead", stacklevel=2)
+            self.ivf_nprobe = 0
         if self.ivf_nprobe and "ivf_centroids" not in index:
             raise ValueError(
                 "ivf_nprobe set but the index has no IVF tables — rebuild "
@@ -194,14 +237,23 @@ class RetrievalService:
                 f"{cb_key} shape {index[cb_key].shape} does "
                 f"not match codes (N, m={gallery.shape[1]})")
 
-        self.device = torch.device(device)
-        self.mesh = None
+        self.mesh = mesh
         self.index_size = gallery.shape[0]
         self.height, self.width = height, width
         self.buckets = tuple(sorted(batch_buckets))
-        self._model = vgg16_netvlad(weights, pca_params=pca_params,
-                                    device=self.device)
-        if quant_backbone:
+        self._lock = threading.Lock()  # serialize device work per process
+        self._closed = False
+        self._lockstep = None
+        if mesh is not None:
+            check_same_on_every_rank(mesh, self.index_size, "the index size")
+            self._lockstep = Lockstep(mesh)
+        self._model = None
+        if not self.leader and mesh is None:
+            return  # a fall-back to one device: rank 0 serves alone
+        if self.leader:
+            self._model = vgg16_netvlad(weights, pca_params=pca_params,
+                                        device=self.device)
+        if quant_backbone and self.leader:
             if calib_images is None:
                 warnings.warn(
                     "quant_backbone=True without calib_images: calibrating "
@@ -220,7 +272,16 @@ class RetrievalService:
                 self.device)
 
         # f16 stays half-width on the device, int8 quarter-width, PQ codes
-        # uint8; the searches widen one tile at a time
+        # uint8; the searches widen one tile at a time. Under a mesh each
+        # rank keeps its ceil(N/n) rows, zero-padded past N: padded exact
+        # rows lie at ||q||² (they could win) and zero codes decode to real
+        # codewords, so the searches mask them by global index
+        self._pad = 0
+        if mesh is not None:
+            self._pad = -(-self.index_size // mesh.size) * mesh.size \
+                - self.index_size
+            gallery = _rank_rows(gallery, mesh)
+            scales = None if scales is None else _rank_rows(scales, mesh)
         self._gallery = torch.from_numpy(gallery).to(self.device)
         self._scale = (None if scales is None
                        else torch.from_numpy(scales).to(self.device))
@@ -233,13 +294,46 @@ class RetrievalService:
         # OPQ: codes encode rotated vectors/residuals, so queries rotate too
         self._pq_rotation = (put(rot_key, np.float32)
                              if uses_codebooks and rot_key in index else None)
+        self._dim = (gallery.shape[1] if not self.use_pq else
+                     self._pq_codebooks.shape[0]
+                     * self._pq_codebooks.shape[2])
         if self.ivf_nprobe:
             self._ivf_centroids = put("ivf_centroids", np.float32)
             self._ivf_lists = put("ivf_lists", np.int64)
-        self._lock = threading.Lock()  # serialize device work per process
+
+    def _on_device(self):
+        """The service's card as the current device: an HTTP server answers
+        each request in a thread of its own, and the current CUDA device is
+        per thread."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _search_sharded(self, desc, k):
+        """Every rank's part of one batch's search: rank 0's descriptors
+        broadcast over the mesh's group, each rank's shard searched, one
+        all-gather of the candidates (the same answer on every rank)."""
+        mesh = self.mesh
+        if mesh.group is not None:
+            dist.broadcast(desc, src=0, group=mesh.group)
+        if self.use_pq:
+            return pq_search_sharded(desc, self._gallery, self._pq_codebooks,
+                                     mesh, k, rotation=self._pq_rotation,
+                                     total=self.index_size)
+        # enough candidates to survive dropping the padded rows
+        d, i = topk_nearest_sharded(
+            desc, self._gallery, mesh,
+            k=min(k + self._pad, self._gallery.shape[0] * mesh.size),
+            gallery_scale=self._scale, gallery_sqnorm=self._sqnorm,
+            resident=True)
+        d = torch.where(i < self.index_size, d, float("inf"))
+        d, order = torch.sort(d, dim=1, stable=True)
+        return d[:, :k], torch.gather(i, 1, order[:, :k])
 
     def _search(self, desc, k):
         """(B, D) descriptors on the device → (dists, indices) tensors."""
+        if self.mesh is not None:
+            return self._search_sharded(desc, k)
         if self.use_pq and self.ivf_nprobe:
             return ivfpq_search(desc, self._gallery, self._pq_codebooks,
                                 self._ivf_centroids, self._ivf_lists, k=k,
@@ -270,19 +364,55 @@ class RetrievalService:
 
     def _run(self, batch, k):
         """uint8 (B, H, W, 3) numpy batch → (dists, indices) numpy; the
-        model and the search run their f32 work in f32 (no TF32)."""
-        with torch.inference_mode(), f32_precision():
+        model and the search run their f32 work in f32 (no TF32). Under a
+        mesh the followers take the batch up after the forward, so a
+        forward that fails leaves them waiting for the next one."""
+        if self._closed:
+            raise RuntimeError("the service is closed")
+        with self._on_device(), torch.inference_mode(), f32_precision():
             desc = self._model(torch.from_numpy(batch).to(self.device))
-            d, i = self._search(desc, k)
+            if self._lockstep is not None:
+                self._lockstep.send(_QUERY, desc.shape[0], k)
+            d, i = self._search(desc.contiguous(), k)
             return d.cpu().numpy(), i.cpu().numpy()
 
     def warmup(self, topk=10):
         """Run every bucket once (kernel build, cuDNN algorithm choice) so
-        first requests are not slow. Takes the request lock."""
+        first requests are not slow; under a mesh the followers run their
+        searches too. Takes the request lock. Nothing on a follower."""
+        if not self.leader:
+            return
         with self._lock:
             for b in self.buckets:
                 z = np.zeros((b, self.height, self.width, 3), np.uint8)
                 self._run(z, min(topk, self.index_size))
+
+    def follow(self):
+        """A follower's serving loop (ranks > 0 of a mesh): take each batch
+        rank 0 sends, search this rank's shard, and return when rank 0
+        calls ``close()``. Returns at once where rank 0 serves alone (a
+        fall-back to one device)."""
+        if self.leader:
+            raise RuntimeError("rank 0 serves: follow() is for the other "
+                               "ranks of a mesh")
+        if self.mesh is None:
+            return
+        with self._on_device(), torch.inference_mode(), f32_precision():
+            while True:
+                op, b, k, _ = self._lockstep.recv()
+                if op == _STOP:
+                    return
+                self._search(torch.empty((b, self._dim), device=self.device),
+                             k)
+
+    def close(self):
+        """End the service: it answers no more queries, and on rank 0 of a
+        mesh the followers' ``follow()`` returns. Idempotent."""
+        with self._lock:
+            if (self.leader and self._lockstep is not None
+                    and not self._closed):
+                self._lockstep.send(_STOP)
+            self._closed = True
 
     def _preprocess(self, images):
         # the SAME transform the index build uses (index_and_query.py)
@@ -313,6 +443,10 @@ class RetrievalService:
         Returns a list (one per image) of match lists
         ``[{"rank", "index", "sq_dist", "path"?}, ...]``.
         """
+        if not self.leader:
+            raise RuntimeError(f"rank {self.rank} does not answer queries: "
+                               f"rank 0 serves and the other ranks call "
+                               f"follow()")
         if not len(images):
             return []
         if topk < 1:

@@ -8,6 +8,7 @@ the log file).
 import atexit
 import io
 import os
+from contextlib import contextmanager
 
 
 class FanoutStream(io.TextIOBase):
@@ -73,3 +74,17 @@ def Logger(fpath=None, console=None):
     atexit.register(stream.close)
     return stream
 
+
+
+@contextmanager
+def tee_stdout(fpath):
+    """Scoped variant: mirror stdout into ``fpath`` for the block's duration."""
+    import sys
+
+    stream = Logger(fpath)
+    prev, sys.stdout = sys.stdout, stream
+    try:
+        yield stream
+    finally:
+        sys.stdout = prev
+        stream.close()

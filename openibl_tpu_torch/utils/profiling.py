@@ -1,18 +1,39 @@
-"""Phase timing (port of openibl_tpu/utils/profiling.py's PhaseTimer).
+"""Tracing and phase timing (port of openibl_tpu/utils/profiling.py).
 
-``PhaseTimer`` accumulates wall clock per named phase (mining / train /
-eval). On a CUDA device a phase ends with ``torch.cuda.synchronize`` so its
-time holds the device work it queued, and the timer keeps each phase's peak
-allocated device memory (``torch.cuda.max_memory_allocated``) in place of
-the JAX package's device memory stats. The torch.profiler trace hook comes
-with the tooling item (ROADMAP Queue 1 item 15).
+  * ``trace(logdir)``: a ``torch.profiler`` trace of the host and, where
+    there is one, the CUDA device around a block, written under ``logdir``
+    as a Chrome trace (open it in Perfetto or chrome://tracing).
+  * ``PhaseTimer`` accumulates wall clock per named phase (mining / train /
+    eval). On a CUDA device a phase ends with ``torch.cuda.synchronize`` so
+    its time holds the device work it queued, and the timer keeps each
+    phase's peak allocated device memory
+    (``torch.cuda.max_memory_allocated``).
+  * ``device_memory_stats()``: device memory in use, its peak and the
+    card's size per CUDA device, under the JAX package's keys.
 """
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(logdir):
+    """Host (and CUDA, when a card is present) trace around a block, saved
+    as ``logdir/trace_<pid>_<time>.json``. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(
+        logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 class PhaseTimer:
@@ -55,3 +76,22 @@ class PhaseTimer:
                 f"x{self.counts[name]}{peak}")
         return "\n".join(lines)
 
+
+
+def device_memory_stats():
+    """Per CUDA device: ``bytes_in_use`` and ``peak_bytes_in_use``
+    (PyTorch's caching allocator, ``torch.cuda.memory_stats``) and
+    ``bytes_limit`` (the card's memory, ``torch.cuda.mem_get_info``). Without
+    a card one ``"cpu"`` entry whose value is None, as the JAX package gives
+    a device without stats."""
+    if not torch.cuda.is_available():
+        return {"cpu": None}
+    stats = {}
+    for i in range(torch.cuda.device_count()):
+        s = torch.cuda.memory_stats(i)
+        stats[f"cuda:{i}"] = {
+            "bytes_in_use": s.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": s.get("allocated_bytes.all.peak", 0),
+            "bytes_limit": torch.cuda.mem_get_info(i)[1],
+        }
+    return stats

@@ -59,7 +59,7 @@ def world(tmp_path_factory):
     theirs = JaxService(index, **kw)
     ours.warmup(topk=5)
     yield {"ours": ours, "theirs": theirs, "images": images,
-           "index": index}
+           "index": index, "weights": weights}
     shutil.rmtree(wdir, ignore_errors=True)  # the full-width .npz is ~0.6 GB
 
 
@@ -125,13 +125,28 @@ def test_reduced_precision_indexes_rank_like_f32():
     assert ids[1] == ids[2] == ids[3] == ids[0]
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    ({"mesh": object()}, "item 12"),
-])
-def test_unported_options_raise(kwargs, item):
-    index = {"descriptors": np.zeros((2, 4096), np.float32)}
-    with pytest.raises(NotImplementedError, match=item):
-        RetrievalService(index, height=H, width=W, device="cpu", **kwargs)
+def test_world_size_one_mesh_serves_like_one_device(world):
+    """A one-rank mesh without a process group goes through the sharded
+    search and answers as the single-device service (the same ids and
+    distances), holding the whole index; rank 0 serves, so follow()
+    refuses, and close() is idempotent."""
+    from openibl_tpu_torch.parallel.mesh import Mesh
+
+    svc = RetrievalService(world["index"], weights=world["weights"],
+                           height=H, width=W, batch_buckets=(1, 2),
+                           mesh=Mesh(torch.device("cpu")), device="cpu")
+    assert svc.mesh is not None and svc._gallery.shape[0] == 16
+    imgs = list(world["images"])
+    got, want = svc.query(imgs, topk=5), world["ours"].query(imgs, topk=5)
+    assert _ids(got) == _ids(want)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose([m["sq_dist"] for m in a],
+                                   [m["sq_dist"] for m in b], rtol=1e-6,
+                                   atol=1e-6)
+    with pytest.raises(RuntimeError, match="follow"):
+        svc.follow()
+    svc.close()
+    svc.close()
 
 
 def test_quant_backbone_service():

@@ -110,6 +110,22 @@ examples/serve_torch.py --n-devices 1 --pq under a one-rank torchrun
 (/healthz, one POST /query against the single-device PQ service, SIGTERM to
 rank 0, every rank's exit code 0); then graft_entry_torch's
 dryrun_multichip(2, backend="gloo") on the card and entry()'s descriptor.
+Then the seven measurement tools of openibl_tpu_torch/tools (phase 9h),
+each through its main(argv) at full width, with K1's and K2's launches
+counted per tool: ivf_recall at its defaults (recall@10 1.0 at nprobe =
+nlist, >= 0.95 at nlist/8) and pq_recall (m=16 recall@10 >= 0.95, >= 0.98
+in the top 40, IVFADC >= 0.98 at full probe: tests/test_pq.py's gates)
+on EmbedNet descriptors of the synthetic world; time_sfrs_rerank at
+Pitts30k's union (n=17,000, 1,000 anchors, r1 skipped) with the device
+Jaccard held to the host's (rtol 1e-5 / atol 1e-6), then with r1 at
+n=4,000; profile_head at batch 128, then K1 held to the plain head (rtol
+1e-4 / atol 1e-5) and the f32 PCA bit-equal with the global TF32 flag on
+and off; profile_backbone at batch 16 and 128 (conv_ms + head_ms =
+full_ms); profile_phases at 480x640 in a process of its own, its trace
+naming K1's three kernels; bench_serving over 100,000 rows, all six
+variants, the synchronous pass and the device pass (finite p50s per
+bucket, a device time per query, the host syncs of each search), then
+both again, which skip everything (resume).
 Beside the served path it measures what cuDNN's TF32 (on as
 PyTorch ships it) does to an f32 descriptor at 480x640 and to the top-10
 over the 100k gallery, through the model's parts and through the entry
@@ -124,8 +140,10 @@ a PCA fit does, because the raw random init maps every image to nearly the
 same descriptor. Each served
 path, the training run, the SFRS run, the two Tokyo eval runs, the
 mesh's sharded extraction, sharded eval and two-rank run, the
-torchrun training run and each mesh-served path (on rank 1, its whole
-follow(), warm-up and timed queries included) run with the kernels' launch counts set to 0 just before and read just after. K1 is also checked at a ragged P (30x41) and at K = 17, for
+torchrun training run, each mesh-served path (on rank 1, its whole
+follow(), warm-up and timed queries included) and each tool's run run
+with the kernels' launch counts set to 0 just before and read just after.
+K1 is also checked at a ragged P (30x41) and at K = 17, for
 the same bits on a second run, and against its split-precision arithmetic
 run in plain PyTorch; K2 also at 3 and 17 queries. Prints timing
 lines (CUDA events, or the host clock for service.query) with the card's
@@ -212,6 +230,10 @@ TOKYO_QUERY_SIZES = (
     (1281, 721))
 # card vs CPU ColorJitter, f32 on the 0..255 scale (about 65 ulps at 255)
 JITTER_ATOL = 1e-3
+# the tools phase's depth (the tools' defaults: 6, 12, 9): OPQ alternations
+# in pq_recall, iterations a prefix in profile_backbone, p50 samples at
+# bucket 1 in bench_serving
+TOOLS_OPQ_ITERS, TOOLS_BACKBONE_ITERS, TOOLS_SERVING_ITERS = 2, 6, 9
 CARD = ""  # the card's name and power limit, set by run()
 
 
@@ -3293,6 +3315,158 @@ def mesh_serve_phase(index, built, weights, images, rows, desc, single, dev,
     return k1, k2, max(errs)
 
 
+
+def tools_phase(dev, card, tmp):
+    """The seven measurement tools of openibl_tpu_torch/tools on the card at
+    full width, each through its ``main(argv)`` as ``python -m`` runs it
+    (profile_phases in a process of its own: its profiler session would add
+    host cost to this process's later launches), with their artifacts under
+    ``tmp``. Checks each against its gate and returns the K1 and K2 launches
+    of each tool's run ({label: count}, counts set to 0 just before)."""
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.ops import pq_kernel as pk
+    from openibl_tpu_torch.tools import (
+        bench_serving, ivf_recall, pq_recall, profile_backbone, profile_head,
+        time_sfrs_rerank)
+
+    k1, k2 = {}, {}
+
+    def run_tool(label, fn):
+        nk.netvlad_fused.launches = pk.adc_tile.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        k1[label], k2[label] = nk.netvlad_fused.launches, pk.adc_tile.launches
+        print(f"phase tools {label}: {time.perf_counter() - t0:.2f} s, K1 "
+              f"launches {k1[label]}, K2 launches {k2[label]} [{card}]",
+              flush=True)
+        print(f"timing tools {label}: {json.dumps(out)} [{card}]", flush=True)
+        return out
+
+    # recall on model descriptors (EmbedNet K=8 over the synthetic world)
+    ivf = run_tool("ivf_recall", lambda: ivf_recall.main(
+        ["--out", osp.join(tmp, "ivf_recall.json")]))
+    curve, nlist = ivf["recall_at_k_vs_exact"], ivf["nlist"]
+    check(curve[nlist] == 1.0 and curve[nlist // 8] >= 0.95,
+          f"ivf_recall over {ivf['gallery']} descriptors: recall@10 "
+          f"{curve[nlist]} at nprobe = nlist = {nlist} (gate 1.0), "
+          f"{curve[nlist // 8]} at nlist/8 (gate >= 0.95)")
+    check(k1["ivf_recall"] > 0, "ivf_recall's extraction launched K1")
+    pq = run_tool("pq_recall", lambda: pq_recall.main(
+        ["--opq-iters", str(TOOLS_OPQ_ITERS),
+         "--out", osp.join(tmp, "pq_recall.json")]))
+    row, ivfpq = pq["pq"][16], pq["ivfpq"]
+    full = ivfpq["recall_in_top_4k_by_nprobe"][ivfpq["nlist"]]
+    check(row["recall_at_k"] >= 0.95 and row["recall_at_k_in_top_4k"] >= 0.98
+          and full >= 0.98,
+          f"pq_recall m=16: recall@10 {row['recall_at_k']} (gate >= 0.95), "
+          f"in top-40 {row['recall_at_k_in_top_4k']} (>= 0.98); IVFADC at "
+          f"full probe {full} (>= 0.98)")
+    check(k2["pq_recall"] > 0, "pq_recall's searches launched K2")
+
+    # the SFRS refresh's Jaccard: Pitts30k's union, then r1 at a smaller n
+    big = run_tool("time_sfrs_rerank_17000", lambda: time_sfrs_rerank.main(
+        ["--n", "17000", "--queries", "1000", "--skip-r1",
+         "--out", osp.join(tmp, "sfrs_17000.json")]))
+    check(big["engines_max_abs_diff"] <= time_sfrs_rerank.ATOL
+          + time_sfrs_rerank.RTOL,
+          f"time_sfrs_rerank n=17000: device Jaccard within rtol 1e-5 / "
+          f"atol 1e-6 of the host's (max |diff| "
+          f"{big['engines_max_abs_diff']:.3g}; the tool checks allclose)")
+    run_tool("time_sfrs_rerank_4000", lambda: time_sfrs_rerank.main(
+        ["--n", "4000", "--n-q", "1722", "--queries", "1000",
+         "--out", osp.join(tmp, "sfrs_4000.json")]))
+
+    # the head's pieces at batch 128, then K1 and the f32 PCA held
+    run_tool("profile_head", lambda: profile_head.main(["--batch", "128"]))
+    vp, pp, fmap, desc = profile_head.inputs(128, dev)
+    pieces = profile_head.head_pieces(vp, pp)
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_tf32
+    with torch.inference_mode():
+        ratio = gate_ratio(pieces["netvlad_fused"](fmap),
+                           pieces["netvlad_xla"](fmap))
+        try:
+            flags.allow_tf32 = True
+            on = pieces["pca_highest"](desc)
+            flags.allow_tf32 = False
+            off = pieces["pca_highest"](desc)
+        finally:
+            flags.allow_tf32 = prev
+    check(ratio <= 1, f"profile_head batch 128: K1's descriptor vs the plain "
+          f"head's within rtol 1e-4 / atol 1e-5 ({ratio:.3f} of the gate)")
+    check(torch.equal(on, off), "profile_head pca_highest bit-equal with the "
+          "global TF32 flag on and off")
+    del vp, pp, fmap, desc, pieces, on, off
+    torch.cuda.empty_cache()
+
+    for batch in (16, 128):
+        bb = run_tool(f"profile_backbone_bs{batch}",
+                      lambda b=batch: profile_backbone.main(
+                          ["--batch", str(b), "--iters",
+                           str(TOOLS_BACKBONE_ITERS)]))
+        gap = abs(bb["conv_ms"] + bb["head_ms"] - bb["full_ms"])
+        check(gap < 1e-3 and len(bb["layers"]) == 13
+              and all(np.isfinite(r["ms"]) for r in bb["layers"]),
+              f"profile_backbone batch {batch}: 13 layers, conv_ms "
+              f"{bb['conv_ms']} + head_ms {bb['head_ms']} = full_ms "
+              f"{bb['full_ms']} (within {gap:.2g})")
+        torch.cuda.empty_cache()
+
+    # one training epoch's phases, traced, in a process of its own
+    trace_dir = osp.join(tmp, "traces")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "openibl_tpu_torch.tools.profile_phases",
+         "--trace-dir", trace_dir], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    check(res.returncode == 0, f"profile_phases exit code {res.returncode}"
+          f"{'' if res.returncode == 0 else ': ' + res.stderr[-2000:]}")
+    phases = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"phase tools profile_phases: {time.perf_counter() - t0:.2f} s "
+          f"(a process of its own) [{card}]")
+    print(f"timing tools profile_phases: {json.dumps(phases)} [{card}]")
+    names = set()
+    for path in os.listdir(trace_dir):
+        with open(osp.join(trace_dir, path)) as f:
+            names |= set(re.findall(r"vlad_(?:assign|aggregate|norm)_kernel",
+                                    f.read()))
+    check(phases["image_hw"] == [480, 640]
+          and set(phases["phases"]) == {"mining_extract", "mining_refresh",
+                                        "train", "eval"}
+          and names == {"vlad_assign_kernel", "vlad_aggregate_kernel",
+                        "vlad_norm_kernel"},
+          f"profile_phases at 480x640: phases {sorted(phases['phases'])}, "
+          f"its trace names K1's kernels {sorted(names)}")
+
+    # the serving table: both passes, then a second call of each skips
+    out = osp.join(tmp, "serving_latency.json")
+    argv = ["--out", out, "--iters", str(TOOLS_SERVING_ITERS)]
+    run_tool("bench_serving", lambda: bench_serving.main(argv))
+    run_tool("bench_serving_device_time",
+             lambda: bench_serving.main(argv + ["--device-time"]))
+    with open(out) as f:
+        table = json.load(f)
+    for name in bench_serving.VARIANTS:
+        r = table["variants"][name]
+        p50s = [r[f"bs{b}"]["p50_ms"] for b in (1, 4, 16)]
+        check(all(np.isfinite(p50s)) and np.isfinite(
+            r["device_ms_per_query"]),
+              f"bench_serving {name} over {table['gallery_size']} rows: p50 "
+              f"bs1/4/16 {p50s} ms, device {r['device_ms_per_query']} "
+              f"ms/query, host syncs {r['host_syncs'] or 'none'}")
+    t0 = time.perf_counter()
+    again = [bench_serving.main(argv)["measured"],
+             bench_serving.main(argv + ["--device-time"])["measured"]]
+    check(again == [[], []], f"bench_serving called again skips every "
+          f"variant of both passes (resume, {time.perf_counter() - t0:.2f} s)")
+    check(k1["bench_serving"] > 0 and k2["bench_serving"] > 0
+          and k1["bench_serving_device_time"] > 0
+          and k2["bench_serving_device_time"] > 0,
+          "bench_serving launched K1 and K2 in both passes")
+    return ({label: n for label, n in k1.items() if n},
+            {label: n for label, n in k2.items() if n})
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3534,6 +3708,10 @@ def run(dev, seed=0):
             dev, card, seed, train_tmp, single)
         del single
 
+    # -- phase 9h (u): the seven measurement tools ------------------------
+    with tempfile.TemporaryDirectory() as tools_tmp:
+        k1_tools, k2_tools = tools_phase(dev, card, tools_tmp)
+
     # -- phase 10: each kernel's host enqueue time, then the launch floor
     # and each device time (after every timed phase) ------------------------
     calls = [*k1_calls, *k2_calls, *probe_calls, *probe_k2_calls,
@@ -3559,19 +3737,25 @@ def run(dev, seed=0):
          "launches": (k1_launches + k1_quant + train_launches
                       + sfrs_launches + tokyo_launches + rerank_launches
                       + sum(mesh_launches.values())
-                      + sum(k1_mesh_serve.values())),
+                      + sum(k1_mesh_serve.values())
+                      + sum(k1_tools.values())),
          "launches_by_path": {"serve_exact": k1_launches,
                               "serve_exact_quant": k1_quant,
                               "train": train_launches,
                               "sfrs": sfrs_launches,
                               "tokyo_eval": tokyo_launches,
                               "tokyo_eval_rerank": rerank_launches,
-                              **mesh_launches, **k1_mesh_serve}, **k1},
+                              **mesh_launches, **k1_mesh_serve,
+                              **{f"tools_{k}": n
+                                 for k, n in k1_tools.items()}}, **k1},
         {"name": "pq_adc", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/pq_adc.cu",
          "replaces": "openibl_tpu/ops/pq_kernel.py:84",
-         "launches": k2_launches + sum(k2_mesh_serve.values()),
-         "launches_by_path": {"serve_modes": k2_launches, **k2_mesh_serve},
+         "launches": (k2_launches + sum(k2_mesh_serve.values())
+                      + sum(k2_tools.values())),
+         "launches_by_path": {"serve_modes": k2_launches, **k2_mesh_serve,
+                              **{f"tools_{k}": n
+                                 for k, n in k2_tools.items()}},
          **k2, "max_abs_err": max(k2["max_abs_err"], k2_mesh_err)},
         *probes,
         {"name": "int8_conv", "route": "cuda",

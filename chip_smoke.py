@@ -126,6 +126,21 @@ naming K1's three kernels; bench_serving over 100,000 rows, all six
 variants, the synchronous pass and the device pass (finite p50s per
 bucket, a device time per query, the host syncs of each search), then
 both again, which skip everything (resume).
+Then the bench lane (phase 9i): tools/bench.py (bench_torch.py) through
+its main(argv) at 480x640 over a 100,000-row gallery: extraction at batch
+16 in its default modes (bf16, then _int8), in f32 and with --no-fused;
+the query p50 and --device-time, each also with --ivf-nprobe 32; the
+SARE step (4 tuples) and the SFRS step (1), f32 and bf16; each line
+under bench.py's exact metric name with a finite value > 0, the f32
+extraction within 15% of phase 7's and the f32 SARE step within 15% of
+the train phase's, K1 counted
+on each run (> 0 fused, 0 with --no-fused) and K3 on the int8 extract (11
+a forward); probe_index_paths at its defaults (8 variants timed, none
+failed; f32_full and f32_norms give topk_nearest's top-10 up to ties);
+then bench_all's entries the in-process runs leave out (the three
+extracts at batch 128), each a bench_torch.py process (every rc 0,
+fused_speedup and int8_speedup present), and bench_all again, which
+skips them all (resume).
 Beside the served path it measures what cuDNN's TF32 (on as
 PyTorch ships it) does to an f32 descriptor at 480x640 and to the top-10
 over the 100k gallery, through the model's parts and through the entry
@@ -141,8 +156,9 @@ same descriptor. Each served
 path, the training run, the SFRS run, the two Tokyo eval runs, the
 mesh's sharded extraction, sharded eval and two-rank run, the
 torchrun training run, each mesh-served path (on rank 1, its whole
-follow(), warm-up and timed queries included) and each tool's run run
-with the kernels' launch counts set to 0 just before and read just after.
+follow(), warm-up and timed queries included), each tool's run and each
+in-process bench run run with the kernels' launch counts set to 0 just
+before and read just after.
 K1 is also checked at a ragged P (30x41) and at K = 17, for
 the same bits on a second run, and against its split-precision arithmetic
 run in plain PyTorch; K2 also at 3 and 17 queries. Prints timing
@@ -170,6 +186,7 @@ own seeds). Needs CUDA; imports no jax.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import importlib.util
 import io
@@ -234,6 +251,11 @@ JITTER_ATOL = 1e-3
 # in pq_recall, iterations a prefix in profile_backbone, p50 samples at
 # bucket 1 in bench_serving
 TOOLS_OPQ_ITERS, TOOLS_BACKBONE_ITERS, TOOLS_SERVING_ITERS = 2, 6, 9
+# the bench phase: extraction at batch 16, 10 timed forwards (bench.py's
+# default), and the bench_all entries its in-process runs leave out (the
+# three extracts at batch 128, whose ratios are bench_all's speed-ups)
+BENCH_BATCH, BENCH_ITERS = 16, 10
+BENCH_ALL_ONLY = ("extract_int8", "extract_fused", "extract_nofused")
 CARD = ""  # the card's name and power limit, set by run()
 
 
@@ -244,10 +266,9 @@ def check(cond, what):
 
 
 def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
+    from openibl_tpu_torch.tools._common import card_label
+
+    return card_label(torch.device("cuda", 0))
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -1560,6 +1581,7 @@ def train_phase(dev, card, seed, tmp):
     tuples = np.stack([np.stack([src.load(i) for i in t])
                        for t in mined[1][:TRAIN_TS]])
     ms = cuda_ms(lambda: tr.step(tuples), reps=5, warmup=1)
+    single["tuples_per_s"] = TRAIN_TS / ms * 1e3
     print(f"timing train step sare_ind {H}x{W} f32, {TRAIN_TS} tuples x "
           f"{2 + TRAIN_NEG} images (conv5 + NetVLAD trained): "
           f"{TRAIN_TS / ms * 1e3:.3f} tuples/s "
@@ -3467,6 +3489,157 @@ def tools_phase(dev, card, tmp):
             {label: n for label, n in k2.items() if n})
 
 
+def bench_phase(dev, card, tmp, extract_f32, train_f32):
+    """(v) The bench lane at full width: tools/bench.py's metrics through
+    its ``main(argv)`` in process, probe_index_paths at its defaults, then
+    bench_all's entries the in-process runs leave out, as subprocesses of
+    ``bench_torch.py`` with their artifact under ``tmp``, and bench_all
+    again, which must skip every entry. ``extract_f32`` and ``train_f32``
+    are phase 7's f32 extraction img/s and the train phase's SARE tuples/s
+    at the same shapes. Returns K1's and K3's launches per bench run
+    ({label: count}, counts set to 0 just before each)."""
+    from openibl_tpu_torch.ops import netvlad_kernel as nk
+    from openibl_tpu_torch.ops import quant_kernel as qk
+    from openibl_tpu_torch.ops.distance import topk_nearest
+    from openibl_tpu_torch.tools import bench, bench_all
+    from openibl_tpu_torch.tools import probe_index_paths as probe
+    from openibl_tpu_torch.utils import f32_precision
+
+    t_phase = time.perf_counter()
+    keys = {"metric", "value", "unit", "vs_baseline"}
+    size = ["--height", str(H), "--width", str(W), "--device", dev.type,
+            "--max-seconds", "600"]
+    k1, k3, lines = {}, {}, {}
+
+    def run_bench(label, argv, names):
+        nk.netvlad_fused.launches = qk.int8_conv.launches = 0
+        t0 = time.perf_counter()
+        out = bench.main(argv + size)
+        k1[label], k3[label] = nk.netvlad_fused.launches, \
+            qk.int8_conv.launches
+        print(f"phase bench {label}: {time.perf_counter() - t0:.2f} s, K1 "
+              f"launches {k1[label]}, K3 launches {k3[label]} [{card}]",
+              flush=True)
+        for ln in out:
+            print(f"timing bench {label}: {json.dumps(ln)} [{card}]")
+        check([ln["metric"] for ln in out] == names
+              and all(keys <= set(ln) and np.isfinite(ln["value"])
+                      and ln["value"] > 0 for ln in out),
+              f"bench {' '.join(argv)}: one line each named {names}, "
+              f"values {[ln['value'] for ln in out]} finite and > 0")
+        lines[label] = out
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return out
+
+    bs, it = str(BENCH_BATCH), str(BENCH_ITERS)
+    img = f"descriptor_images_per_sec_per_chip_{H}x{W}"
+    run_bench("extract", ["--batch-size", bs, "--iters", it],
+              [f"{img}_bfloat16_bs{bs}", f"{img}_bfloat16_int8_bs{bs}"])
+    run_bench("extract_f32", ["--batch-size", bs, "--iters", it, "--dtype",
+                              "float32", "--no-int8"],
+              [f"{img}_float32_bs{bs}"])
+    run_bench("extract_nofused", ["--batch-size", bs, "--iters", it,
+                                  "--no-int8", "--no-fused"],
+              [f"{img}_bfloat16_bs{bs}"])
+    query = ["--metric", "query", "--gallery-size", str(GALLERY)]
+    run_bench("query", query, [f"query_p50_latency_ms_{GALLERY}gallery"])
+    run_bench("query_device", query + ["--device-time"],
+              [f"query_device_ms_{GALLERY}gallery_scan50"])
+    run_bench("query_ivf32", query + ["--ivf-nprobe", "32"],
+              [f"query_p50_latency_ms_{GALLERY}gallery_ivf32of256"])
+    run_bench("query_ivf32_device", query + ["--ivf-nprobe", "32",
+                                             "--device-time"],
+              [f"query_device_ms_{GALLERY}gallery_ivf32of256_scan50"])
+    for dtype in ("float32", "bfloat16"):
+        tag = "_f32" if dtype == "float32" else ""
+        run_bench(f"train{tag}", ["--metric", "train", "--dtype", dtype],
+                  [f"sare_train_tuples_per_sec_{H}x{W}_{dtype}_ts4"])
+        run_bench(f"sfrs{tag}", ["--metric", "sfrs", "--dtype", dtype],
+                  [f"sfrs_train_tuples_per_sec_{H}x{W}_{dtype}_ts1"])
+
+    f32 = lines["extract_f32"][0]["value"]
+    check(abs(f32 / extract_f32 - 1) < 0.15,
+          f"bench f32 extraction {f32} img/s within 15% of phase 7's "
+          f"{extract_f32:.2f} (batch {bs}, {H}x{W})")
+    sare = lines["train_f32"][0]["value"]
+    check(abs(sare / train_f32 - 1) < 0.15,
+          f"bench SARE f32 ts4 {sare} tuples/s within 15% of the train "
+          f"phase's {train_f32:.3f}")
+    forwards = BENCH_ITERS + 1  # a warm forward, then the timed ones
+    check(k1["extract"] > 0 and k1["extract_f32"] > 0
+          and k1["extract_nofused"] == 0 and k1["query"] > 0
+          and k1["query_device"] > 0 and k1["query_ivf32"] > 0
+          and k1["query_ivf32_device"] > 0,
+          f"K1 launched on the fused extracts ({k1['extract']}, "
+          f"{k1['extract_f32']}) and the queries ({k1['query']}, "
+          f"{k1['query_device']}, {k1['query_ivf32']}, "
+          f"{k1['query_ivf32_device']}), not on --no-fused "
+          f"({k1['extract_nofused']})")
+    check(k3["extract"] == 11 * forwards,
+          f"K3 launched {k3['extract']} times on the int8 extract: 11 "
+          f"layers x {forwards} forwards")
+
+    # the index probe at its defaults, then f32_full and f32_norms held to
+    # topk_nearest on the first query batch
+    t0 = time.perf_counter()
+    pargv = ["--n", str(GALLERY), "--d", str(DIM), "--device", dev.type]
+    probed = probe.main(pargv)
+    print(f"phase bench probe_index_paths: {time.perf_counter() - t0:.2f} s"
+          f" [{card}]", flush=True)
+    print(f"timing bench probe_index_paths: {json.dumps(probed)} [{card}]")
+    check(len(probed["rows"]) == 8 and all(
+        "error" not in r and np.isfinite(r["ms_per_call"])
+        for r in probed["rows"]),
+          f"probe_index_paths: 8 variants timed, none failed: "
+          f"{probed['summary']}")
+    args = probe.parse(pargv)
+    g32, qs = probe.inputs(args, dev)
+    fns = probe.variants(g32, args.k)
+    with torch.inference_mode(), f32_precision():
+        d_ref, i_ref = topk_nearest(qs[0], g32, k=args.k)
+        for name in ("f32_full", "f32_norms"):
+            check(*same_top10_up_to_cut(*fns[name](qs[0]), d_ref, i_ref,
+                                        f"probe {name} vs topk_nearest over "
+                                        f"{GALLERY} rows", 1e-5))
+    del g32, qs, fns, d_ref, i_ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # bench_all: the entries not run above, each a process of its own, then
+    # a second call that must skip them all
+    t0 = time.perf_counter()
+    argv = ["--round", "0", "--out", osp.join(tmp, "bench_r00.json"),
+            "--only", ",".join(BENCH_ALL_ONLY)]
+    with contextlib.redirect_stdout(io.StringIO()):  # the artifact, again
+        out = bench_all.main(argv)
+    print(f"phase bench bench_all: {time.perf_counter() - t0:.2f} s, "
+          f"{len(out['entries'])} entries [{card}]", flush=True)
+    for name, e in out["entries"].items():
+        print(f"timing bench_all {name}: rc {e['rc']}, {e['wall_s']} s, "
+              f"{json.dumps(e['result'])} [{card}]")
+    check(sorted(out["entries"]) == sorted(BENCH_ALL_ONLY) and all(
+        e["rc"] == 0 and e["result"] and np.isfinite(e["result"]["value"])
+        and e["result"]["value"] > 0 for e in out["entries"].values())
+          and "fused_speedup" in out and "int8_speedup" in out,
+          f"bench_all {','.join(BENCH_ALL_ONLY)}: every entry rc 0 with a "
+          f"finite value; fused_speedup {out.get('fused_speedup')}, "
+          f"int8_speedup {out.get('int8_speedup')}")
+    ran, run_one = [], bench_all.run_one
+    bench_all.run_one = lambda extra, **kw: ran.append(extra)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            again = bench_all.main(argv)
+    finally:
+        bench_all.run_one = run_one
+    check(ran == [] and again["entries"] == out["entries"],
+          "bench_all called again skips every entry (resume)")
+    print(f"phase bench: {time.perf_counter() - t_phase:.2f} s in all "
+          f"[{card}]", flush=True)
+    return ({label: n for label, n in k1.items() if n},
+            {label: n for label, n in k3.items() if n})
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3706,11 +3879,17 @@ def run(dev, seed=0):
         # world (NCCL at world size 1 through the example, two gloo ranks)
         mesh_launches["mesh_train_torchrun"] = mesh_train_phase(
             dev, card, seed, train_tmp, single)
+        train_rate = single["tuples_per_s"]
         del single
 
     # -- phase 9h (u): the seven measurement tools ------------------------
     with tempfile.TemporaryDirectory() as tools_tmp:
         k1_tools, k2_tools = tools_phase(dev, card, tools_tmp)
+
+    # -- phase 9i (v): the bench lane -------------------------------------
+    with tempfile.TemporaryDirectory() as bench_tmp:
+        k1_bench, k3_bench = bench_phase(dev, card, bench_tmp,
+                                         rates[torch.float32], train_rate)
 
     # -- phase 10: each kernel's host enqueue time, then the launch floor
     # and each device time (after every timed phase) ------------------------
@@ -3738,7 +3917,7 @@ def run(dev, seed=0):
                       + sfrs_launches + tokyo_launches + rerank_launches
                       + sum(mesh_launches.values())
                       + sum(k1_mesh_serve.values())
-                      + sum(k1_tools.values())),
+                      + sum(k1_tools.values()) + sum(k1_bench.values())),
          "launches_by_path": {"serve_exact": k1_launches,
                               "serve_exact_quant": k1_quant,
                               "train": train_launches,
@@ -3747,7 +3926,9 @@ def run(dev, seed=0):
                               "tokyo_eval_rerank": rerank_launches,
                               **mesh_launches, **k1_mesh_serve,
                               **{f"tools_{k}": n
-                                 for k, n in k1_tools.items()}}, **k1},
+                                 for k, n in k1_tools.items()},
+                              **{f"bench_{k}": n
+                                 for k, n in k1_bench.items()}}, **k1},
         {"name": "pq_adc", "route": "cuda",
          "source": "openibl_tpu_torch/csrc/pq_adc.cu",
          "replaces": "openibl_tpu/ops/pq_kernel.py:84",
@@ -3762,8 +3943,10 @@ def run(dev, seed=0):
          "source": "openibl_tpu_torch/csrc/quant_conv.cu",
          "replaces": "openibl_tpu/ops/quant.py:203 (XLA int8 conv, no "
                      "pallas_call)",
-         "launches": k3_launches,
-         "launches_by_path": {"serve_exact_quant": k3_launches},
+         "launches": k3_launches + sum(k3_bench.values()),
+         "launches_by_path": {"serve_exact_quant": k3_launches,
+                              **{f"bench_{k}": n
+                                 for k, n in k3_bench.items()}},
          "max_abs_err": k3_err, **k3},
     ]}))
     print(json.dumps({"ok": True, "device": {

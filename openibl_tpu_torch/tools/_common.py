@@ -11,6 +11,7 @@ clock times each call (a CPU number is never a device number).
 
 import json
 import pathlib
+import subprocess
 import time
 
 import torch
@@ -35,6 +36,22 @@ def device_name(device):
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return "cpu"
+
+
+def card_label(device):
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, or
+    ``"cpu"``: what a number taken on ``device`` stands beside."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return out.stdout.strip()
 
 
 def call_times_ms(fn, device, iters, warmup=1):

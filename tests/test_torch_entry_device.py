@@ -2,13 +2,16 @@
 CPU: with no device argument and no usable card, ``hub.vgg16_netvlad``,
 ``hub.DescriptorExtractor``, ``serving.RetrievalService``, the probe tool,
 ``pipeline.run_eval``, ``pipeline.run_sfrs_training``, the device path of
-``rerank.JaccardEngine`` and the evaluation and SFRS examples raise instead
-of running on the CPU; with ``device="cpu"`` each runs.
+``rerank.JaccardEngine``, the evaluation and SFRS examples, the bench
+(``bench_torch.py``, ``tools.bench``, the command each entry of
+``tools.bench_all`` runs) and ``tools.probe_index_paths`` raise instead of
+running on the CPU; with ``device="cpu"`` each runs.
 ``torch.cuda.is_available`` is patched to False, so the raising cases hold
 on a machine with a card too.
 """
 
 import importlib.util
+import json
 import os.path as osp
 import subprocess
 import sys
@@ -26,7 +29,8 @@ from openibl_tpu_torch.ops.rerank import JaccardEngine  # noqa: E402
 from openibl_tpu_torch.hub import (  # noqa: E402
     DescriptorExtractor, vgg16_netvlad)
 from openibl_tpu_torch.serving import RetrievalService  # noqa: E402
-from openibl_tpu_torch.tools import mosaic_probe  # noqa: E402
+from openibl_tpu_torch.tools import (  # noqa: E402
+    bench, bench_all, mosaic_probe, probe_index_paths)
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 H, W = 32, 48
@@ -73,6 +77,55 @@ def no_card(monkeypatch):
 def test_default_device_is_the_card(no_card, entry):
     with pytest.raises(RuntimeError, match=NO_CARD):
         entry()
+
+
+@pytest.mark.parametrize("argv", [
+    *[extra for _, extra in bench_all.SUITE],
+    ["--metric", "extract", "--batch-size", "16", "--dtype", "float32"],
+], ids=[*[name for name, _ in bench_all.SUITE], "extract_f32"])
+def test_bench_defaults_to_the_card(no_card, argv):
+    """``tools.bench.main`` on each bench_all entry's arguments (what the
+    suite's child command runs) raises before it builds anything."""
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        bench.main(argv + ["--max-seconds", "0"])
+
+
+def test_probe_index_paths_defaults_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        probe_index_paths.main(["--n", "64", "--d", "8"])
+
+
+def test_probe_index_paths_runs_on_cpu(capsys):
+    out = probe_index_paths.main(["--n", "512", "--q", "2", "--d", "16",
+                                  "--iters", "2", "--nlist", "8",
+                                  "--nprobe", "2", "--device", "cpu"])
+    assert len(out["rows"]) == 8
+    assert all("ms_per_call" in r for r in out["rows"])
+
+
+def _bench_cli(*args):
+    return subprocess.run(
+        [sys.executable, osp.join(ROOT, "bench_torch.py"), *args,
+         "--max-seconds", "60"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+
+
+def test_bench_cli_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs there")
+    res = _bench_cli("--metric", "query")
+    assert res.returncode != 0 and res.stdout == ""
+    assert "torch.cuda.is_available() is False" in res.stderr
+
+
+def test_bench_cli_runs_on_cpu():
+    res = _bench_cli("--metric", "query", "--device", "cpu", "--height",
+                     "32", "--width", "32", "--gallery-size", "64",
+                     "--iters", "1", "--dtype", "float32")
+    assert res.returncode == 0, res.stderr
+    line = json.loads(res.stdout)
+    assert line["metric"] == "query_p50_latency_ms_64gallery"
+    assert line["value"] > 0 and line["device"] == "cpu"
 
 
 def test_vgg16_netvlad_runs_on_cpu():

@@ -30,6 +30,11 @@ openibl_tpu/engine/trainer.py).
     step. The jitter draws are the global batch's, and a rank jitters the
     rows of its own tuples, so N ranks see the pixels one process sees.
     The parameters start equal on every rank (``broadcast_module``).
+  * under a ``torch.profiler`` session a step records ``utils.profiling``
+    spans: ``train.step`` (tagged ``step``, the trainer's count) holding
+    ``train.h2d`` (the upload and any device jitter), ``train.forward``
+    (descriptors and loss) and ``train.backward`` (backward, the mesh's
+    all-reduce, SGD), each with its device stream's time.
 """
 
 import itertools
@@ -46,7 +51,7 @@ from openibl_tpu_torch.ops.augment import (apply_jitter, draw_jitter,
 from openibl_tpu_torch.ops.losses import tuple_loss
 from openibl_tpu_torch.parallel.mesh import (all_reduce_mean_,
                                              check_same_on_every_rank)
-from openibl_tpu_torch.utils import AverageMeter, f32_precision
+from openibl_tpu_torch.utils import AverageMeter, f32_precision, profiling
 
 JITTER_PARAMS = (0.7, 0.7, 0.7, 0.5)  # the reference's ColorJitter
 
@@ -111,6 +116,7 @@ class Trainer:
         self.weight_decay = weight_decay
         self.optimizer = None
         self.scheduler = None
+        self.steps = 0  # optimizer steps taken
 
     def check_batch_shape(self, tuple_size):
         """Fail fast on a tuple batch the mesh can't shard."""
@@ -186,16 +192,23 @@ class Trainer:
         loss returned is the global batch's."""
         if self.optimizer is None:
             raise RuntimeError("call init() before step()")
-        images = self._device_images(images, generator)
-        t, g = images.shape[:2]
-        flat = images.reshape((t * g,) + tuple(images.shape[2:]))
-        self.optimizer.zero_grad(set_to_none=True)
-        with f32_precision():
-            desc = self._descriptors(flat).reshape(t, g, -1)
-            loss = tuple_loss(desc, self.loss_type, self.margin)
-            loss.backward()
-        loss, = self._finish_grads(loss)
-        self.optimizer.step()
+        dev = next(self.model.parameters()).device
+        with profiling.span("train.step", step=self.steps):
+            self.steps += 1
+            with profiling.span("train.h2d", stream=dev):
+                images = self._device_images(images, generator)
+            t, g = images.shape[:2]
+            flat = images.reshape((t * g,) + tuple(images.shape[2:]))
+            self.optimizer.zero_grad(set_to_none=True)
+            with profiling.span("train.forward", stream=dev), \
+                    f32_precision():
+                desc = self._descriptors(flat).reshape(t, g, -1)
+                loss = tuple_loss(desc, self.loss_type, self.margin)
+            with profiling.span("train.backward", stream=dev):
+                with f32_precision():
+                    loss.backward()
+                loss, = self._finish_grads(loss)
+                self.optimizer.step()
         return loss
 
     def set_epoch_lr(self, epoch, step_size, gamma=0.5):

@@ -8,6 +8,12 @@ device, as the JAX package's extraction does. Bucket-padded batches of a
 over the ranks of a mesh (parallel.mesh): each rank extracts its
 contiguous slice on its device and the rows are all-gathered in rank
 order, the reference's DistributedSliceSampler and gather.
+
+Under a ``torch.profiler`` session ``extract_features`` records
+``utils.profiling`` spans: ``extract.features`` (the call) holding, per
+batch (tagged ``batch``), ``extract.h2d`` (the images' copy to the
+device) and ``extract.forward`` (forward, PCA and the rows' write into
+the output), each with its device stream's time.
 """
 
 import numpy as np
@@ -16,7 +22,7 @@ import torch
 from openibl_tpu_torch.data.loader import BatchLoader
 from openibl_tpu_torch.data.sampler import slice_indices
 from openibl_tpu_torch.parallel.mesh import all_gather_rows
-from openibl_tpu_torch.utils import l2_normalize
+from openibl_tpu_torch.utils import l2_normalize, profiling
 
 
 def make_extract_fn(model, feature="vlad", l2norm=True, pca=None):
@@ -76,47 +82,53 @@ def extract_features(model, loader, mesh=None, pca=None, feature="vlad",
                 "buffer")
         n_total = len(loader.indices)
 
-    buf, offset = None, 0
-    chunks, orders = [], []
-    with torch.no_grad():
-        for i, batch in enumerate(loader):
-            images = torch.from_numpy(np.asarray(batch[0])).to(dev)
-            if len(batch) == 4:
-                if fwd_masked is None:
+    with profiling.span("extract.features"):
+        buf, offset = None, 0
+        chunks, orders = [], []
+        with torch.no_grad():
+            for i, batch in enumerate(loader):
+                with profiling.span("extract.h2d", stream=dev, batch=i):
+                    images = torch.from_numpy(np.asarray(batch[0])).to(dev)
+                if len(batch) == 4 and fwd_masked is None:
                     raise ValueError(
                         "loader yields (images, valid_hw, idx, count) "
                         "batches but no masked_apply_fn was provided")
-                _, valid_hw, idx, count = batch
-                out = fwd_masked(images, torch.from_numpy(
-                    np.asarray(valid_hw)).to(dev))
-            else:
-                _, idx, count = batch
-                out = fwd(images)
-            if device_output:
-                if buf is None:
-                    buf = torch.empty((n_total, out.shape[1]),
-                                      dtype=out.dtype, device=dev)
-                buf[offset:offset + count] = out[:count]
-                offset += count
-            else:
-                chunks.append(out[:count].cpu().numpy())
-            orders.append(np.asarray(idx)[:count])
-            if verbose and (i + 1) % 10 == 0:
-                print(f"  extract [{i + 1}/{len(loader)}]")
-    if device_output:
-        if offset != n_total:
-            raise RuntimeError(f"loader yielded {offset} of {n_total} rows")
+                with profiling.span("extract.forward", stream=dev, batch=i):
+                    if len(batch) == 4:
+                        _, valid_hw, idx, count = batch
+                        out = fwd_masked(images, torch.from_numpy(
+                            np.asarray(valid_hw)).to(dev))
+                    else:
+                        _, idx, count = batch
+                        out = fwd(images)
+                    if device_output:
+                        if buf is None:
+                            buf = torch.empty((n_total, out.shape[1]),
+                                              dtype=out.dtype, device=dev)
+                        buf[offset:offset + count] = out[:count]
+                        offset += count
+                    else:
+                        chunks.append(out[:count].cpu().numpy())
+                orders.append(np.asarray(idx)[:count])
+                if verbose and (i + 1) % 10 == 0:
+                    print(f"  extract [{i + 1}/{len(loader)}]")
+        if device_output:
+            if offset != n_total:
+                raise RuntimeError(
+                    f"loader yielded {offset} of {n_total} rows")
+            if not sort:
+                return buf
+            perm = np.argsort(np.concatenate(orders), kind="stable")
+            if np.array_equal(perm, np.arange(len(perm))):
+                # emission order already ascending (e.g. arange)
+                return buf
+            return buf[torch.from_numpy(perm).to(dev)]
+        feats = np.concatenate(chunks)
         if not sort:
-            return buf
-        perm = np.argsort(np.concatenate(orders), kind="stable")
-        if np.array_equal(perm, np.arange(len(perm))):
-            return buf  # emission order already ascending (e.g. arange)
-        return buf[torch.from_numpy(perm).to(dev)]
-    feats = np.concatenate(chunks)
-    if not sort:
-        return feats
-    order = np.concatenate(orders)
-    return feats[np.argsort(order, kind="stable")]  # ascending dataset order
+            return feats
+        order = np.concatenate(orders)
+        # ascending dataset order
+        return feats[np.argsort(order, kind="stable")]
 
 
 def extract_features_sharded(model, source, indices=None, batch_size=32,

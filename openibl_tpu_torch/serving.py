@@ -24,9 +24,17 @@ each batch it sends a header over the mesh's ``Lockstep`` and broadcasts
 the (B, D) descriptors, while the other ranks sit in ``follow()`` until
 rank 0's ``close()``. examples/serve_torch.py wraps the service in a
 stdlib HTTP server.
+
+Under a ``torch.profiler`` session each request records its stages as
+``utils.profiling`` spans: ``serve.query`` (the call, tagged ``request``)
+holds ``serve.preprocess`` (validation, stack, bucket pad),
+``serve.lock_wait`` (the wait behind other requests), ``serve.h2d``,
+``serve.forward`` and ``serve.search`` (each with its device stream's
+time) and ``serve.results`` (the match lists).
 """
 
 import contextlib
+import itertools
 import os
 import threading
 import warnings
@@ -46,7 +54,7 @@ from openibl_tpu_torch.ops.pq import (
 from openibl_tpu_torch.ops.quant import quantize_model_params
 from openibl_tpu_torch.parallel.mesh import (
     Lockstep, check_same_on_every_rank, run_device)
-from openibl_tpu_torch.utils import f32_precision
+from openibl_tpu_torch.utils import f32_precision, profiling
 
 _BATCH_BUCKETS = (1, 4, 16)
 _QUERY, _STOP = 1, 2  # the lockstep's op codes
@@ -242,6 +250,7 @@ class RetrievalService:
         self.height, self.width = height, width
         self.buckets = tuple(sorted(batch_buckets))
         self._lock = threading.Lock()  # serialize device work per process
+        self._requests = itertools.count()  # the ``request`` id of spans
         self._closed = False
         self._lockstep = None
         if mesh is not None:
@@ -370,10 +379,14 @@ class RetrievalService:
         if self._closed:
             raise RuntimeError("the service is closed")
         with self._on_device(), torch.inference_mode(), f32_precision():
-            desc = self._model(torch.from_numpy(batch).to(self.device))
+            with profiling.span("serve.h2d", stream=self.device):
+                images = torch.from_numpy(batch).to(self.device)
+            with profiling.span("serve.forward", stream=self.device):
+                desc = self._model(images)
             if self._lockstep is not None:
                 self._lockstep.send(_QUERY, desc.shape[0], k)
-            d, i = self._search(desc.contiguous(), k)
+            with profiling.span("serve.search", stream=self.device):
+                d, i = self._search(desc.contiguous(), k)
             return d.cpu().numpy(), i.cpu().numpy()
 
     def warmup(self, topk=10):
@@ -437,6 +450,15 @@ class RetrievalService:
             out.append(img)
         return np.stack(out)
 
+    def _pad_to_bucket(self, batch):
+        """(the batch padded to its bucket, its number of real rows)."""
+        n = batch.shape[0]
+        bucket = next(b for b in self.buckets if b >= n)
+        if bucket > n:
+            pad = np.zeros((bucket - n,) + batch.shape[1:], np.uint8)
+            batch = np.concatenate([batch, pad])
+        return batch, n
+
     def query(self, images, topk=10):
         """images: list of PIL images or (H, W, 3) uint8 arrays.
 
@@ -451,38 +473,40 @@ class RetrievalService:
             return []
         if topk < 1:
             raise ValueError(f"topk must be >= 1, got {topk}")
-        batch = self._preprocess(images)
-        n = batch.shape[0]
-        bucket = next((b for b in self.buckets if b >= n), None)
-        if bucket is None:  # larger than the biggest bucket: chunk it
+        with profiling.span("serve.query", request=next(self._requests)):
+            with profiling.span("serve.preprocess"):
+                batch = self._preprocess(images)
+                # chunks of at most the biggest bucket, each padded to its
+                # bucket
+                step = self.buckets[-1]
+                chunks = [self._pad_to_bucket(batch[s : s + step])
+                          for s in range(0, batch.shape[0], step)]
             results = []
-            step = self.buckets[-1]
-            for s in range(0, n, step):
-                results.extend(self._query_batch(batch[s : s + step], topk))
+            for chunk, n in chunks:
+                results.extend(self._query_batch(chunk, n, topk))
             return results
-        return self._query_batch(batch, topk, bucket)
 
-    def _query_batch(self, batch, topk, bucket=None):
-        """Run one preprocessed uint8 batch, padded to its bucket."""
-        n = batch.shape[0]
-        if bucket is None:
-            bucket = next(b for b in self.buckets if b >= n)
-        if bucket > n:
-            pad = np.zeros((bucket - n,) + batch.shape[1:], np.uint8)
-            batch = np.concatenate([batch, pad])
+    def _query_batch(self, batch, n, topk):
+        """Run one preprocessed uint8 batch padded to its bucket, of which
+        the first ``n`` rows are real."""
         k = min(topk, self.index_size)
-        with self._lock:
+        with profiling.span("serve.lock_wait"):
+            self._lock.acquire()
+        try:
             d, idx = self._run(batch, k)
-        out = []
-        for row_d, row_i in zip(d[:n], idx[:n]):
-            matches = []
-            for i, dist in zip(row_i, row_d):
-                if i < 0:  # unfilled IVF slot (fewer candidates than k)
-                    continue
-                m = {"rank": len(matches) + 1, "index": int(i),
-                     "sq_dist": float(dist)}
-                if self.paths:
-                    m["path"] = self.paths[int(i)]
-                matches.append(m)
-            out.append(matches)
+        finally:
+            self._lock.release()
+        with profiling.span("serve.results"):
+            out = []
+            for row_d, row_i in zip(d[:n], idx[:n]):
+                matches = []
+                for i, dist in zip(row_i, row_d):
+                    if i < 0:  # unfilled IVF slot (fewer candidates than k)
+                        continue
+                    m = {"rank": len(matches) + 1, "index": int(i),
+                         "sq_dist": float(dist)}
+                    if self.paths:
+                        m["path"] = self.paths[int(i)]
+                    matches.append(m)
+                out.append(matches)
         return out

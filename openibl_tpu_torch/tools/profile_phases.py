@@ -15,6 +15,10 @@ reference has only per-iteration wall-clock meters
 ``torch.profiler`` trace of the host and the card (a Chrome trace, for
 Perfetto) under ``--trace-dir`` ('' disables it) and reports the card's
 memory (``device_memory_stats``); on the CPU at 32x48 in f32, untraced.
+In the trace the port's own spans (``utils/profiling.span``) name its
+stages on the host's timeline: ``train.step`` with ``train.h2d``,
+``train.forward`` and ``train.backward``, and the mining extraction's
+``extract.features`` with ``extract.h2d`` and ``extract.forward`` a batch.
 
 A profiler session adds host cost to the launches made after it in the
 same process, so run this tool in a process of its own when other timings

@@ -2,11 +2,17 @@
 
   python3 chip_smoke.py
 
-Builds the port's four CUDA libraries from this checkout, one nvcc each,
+Builds the port's five CUDA libraries from this checkout, one nvcc each,
 in parallel: the fused NetVLAD head (K1, csrc/netvlad.cu), the PQ ADC tile
 scorer (K2, csrc/pq_adc.cu), the six kernels of the Mosaic layout probes
-(P1-P7, csrc/mosaic_probe.cu) and the int8 3x3 convolution with the fused
-requantize epilogue (K3, csrc/quant_conv.cu). Holds each to its plain
+(P1-P7, csrc/mosaic_probe.cu), the int8 3x3 convolution with the fused
+requantize epilogue (K3, csrc/quant_conv.cu) and the f32 3x3 convolution
+in split TF32 with its bias and ReLU (K4, csrc/conv_f32.cu: each layer of
+VGG16 at 480x640 at batch 16 and 1 against the f64 convolution, timed
+beside its plain version, cuDNN's f32 convolution and every forced
+geometry; its launches are counted on each main-path run below and held
+to its forwards: 13 an f32 forward, 10 a step that trains conv5, 2 a
+quantized forward). Holds each to its plain
 PyTorch version on the card at the main path's shapes (the probes at the TPU script's own toy
 sizes, each row driven through the port's probe tool as its own path),
 then drives the serving path at full width:
@@ -221,7 +227,7 @@ K2_ROWS = (1_000_000, 999_983, GALLERY)  # 1M codes, a ragged N, main path
 PQ_M, NLIST, NPROBE, SHORTLIST = 64, 256, 16, 256
 KERNELS = {"netvlad": ["netvlad.cu"], "pq_adc": ["pq_adc.cu"],
            "mosaic_probe": ["mosaic_probe.cu"],
-           "quant_conv": ["quant_conv.cu"]}
+           "quant_conv": ["quant_conv.cu"], "conv_f32": ["conv_f32.cu"]}
 # H100 SXM at 700 W (data sheet): HBM bytes, f32 CUDA-core operations and
 # dense tensor-core operations (TF32, bf16) per ms
 HBM_BYTES_PER_MS, F32_OPS_PER_MS = 3.35e9, 67e9
@@ -423,26 +429,44 @@ def build_kernels(card):
                           or "arning" in ln), end="")
 
 
-def k3_sass(card):
-    """K3's SASS, where the toolkit has cuobjdump: the counts of int8 wgmma
-    (IGMMA), TMA loads and stores (UTMALDG, UTMASTG) and mma.sync int8
-    (IMMA), checked: wgmma fed by TMA, no mma.sync."""
+def check_sass(card, label, lib_name, ops, must, what):
+    """A kernel library's SASS, where the toolkit has cuobjdump: the count
+    of each opcode of ``ops``, then ``check(must(counts), what)``."""
     from openibl_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not osp.isfile(tool):
-        print(f"  K3 SASS: no cuobjdump on this machine [{card}]")
+        print(f"  {label} SASS: no cuobjdump on this machine [{card}]")
         return
-    lib = _build.library_path("quant_conv", KERNELS["quant_conv"])
+    lib = _build.library_path(lib_name, KERNELS[lib_name])
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
-    ops = {op: len(re.findall(rf"\b{op}\b", sass))
-           for op in ("IGMMA", "UTMALDG", "UTMASTG", "IMMA")}
-    print(f"  K3 SASS ({osp.basename(lib)}): " + ", ".join(
-        f"{k} {v}" for k, v in ops.items()) + f" [{card}]")
-    check(ops["IGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["IMMA"] == 0,
-          "K3 runs int8 wgmma fed by TMA (IGMMA, UTMALDG) and no mma.sync "
-          "(IMMA)")
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+    print(f"  {label} SASS ({osp.basename(lib)}): " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()) + f" [{card}]")
+    check(must(counts), what)
+
+
+def k3_sass(card):
+    """K3's SASS: int8 wgmma (IGMMA) fed by TMA (UTMALDG, UTMASTG), no
+    mma.sync int8 (IMMA)."""
+    check_sass(card, "K3", "quant_conv", ("IGMMA", "UTMALDG", "UTMASTG",
+                                          "IMMA"),
+               lambda c: c["IGMMA"] > 0 and c["UTMALDG"] > 0
+               and c["IMMA"] == 0,
+               "K3 runs int8 wgmma fed by TMA (IGMMA, UTMALDG) and no "
+               "mma.sync (IMMA)")
+
+
+def k4_sass(card):
+    """K4's SASS: TF32 wgmma (HGMMA) fed by TMA (UTMALDG, UTMASTG), no
+    mma.sync (HMMA)."""
+    check_sass(card, "K4", "conv_f32", ("HGMMA", "UTMALDG", "UTMASTG",
+                                        "HMMA"),
+               lambda c: c["HGMMA"] > 0 and c["UTMALDG"] > 0
+               and c["HMMA"] == 0,
+               "K4 runs wgmma fed by TMA (HGMMA, UTMALDG) and no mma.sync "
+               "(HMMA)")
 
 
 def gate_ratio(out, ref, rtol=RTOL, atol=ATOL):
@@ -1163,9 +1187,10 @@ def quant_phase(model, index, weights, images, rows, desc_f32, rates, dev,
     torch.cuda.empty_cache()
 
     # -- the served path: planted rows, launches ----------------------------
-    nk.netvlad_fused.launches = qk.int8_conv.launches = 0  # the path starts
-    results = service.query(list(images), topk=10)
-    k1, k3 = nk.netvlad_fused.launches, qk.int8_conv.launches  # path ends
+    with k4_counted("serve_exact_quant"):
+        nk.netvlad_fused.launches = qk.int8_conv.launches = 0  # path starts
+        results = service.query(list(images), topk=10)
+        k1, k3 = nk.netvlad_fused.launches, qk.int8_conv.launches  # ends
     top1 = float(np.mean([r[0]["index"] == int(rows[j])
                           for j, r in enumerate(results)]))
     print(f"  quant: planted top-1 {top1} over {len(results)} queries; "
@@ -1336,6 +1361,211 @@ def k3_entry(calls):
     return {**sums(N_IMG), "batch1": sums(1)}
 
 
+def k4_split_error(y, x, wt, b, relu):
+    """max over outputs of |y - the f64 convolution| / (the output's sum of
+    |x| * |w| + |b|): tests/test_torch_conv_kernel.py's measure."""
+    import torch.nn.functional as F
+
+    def conv(a, k, c):
+        return F.conv2d(a.double().permute(0, 3, 1, 2), k.double(),
+                        c.double(), padding=1).permute(0, 2, 3, 1)
+
+    ref = conv(x, wt, b)
+    if relu:
+        ref = ref.clamp_min(0)
+    scale = conv(x.abs(), wt.abs(), b.abs())
+    err = float(((y.double() - ref).abs() / scale).max())
+    del ref, scale
+    return err
+
+
+K4_LAUNCHES = {}  # K4's launches on each main-path run, by path
+
+
+@contextlib.contextmanager
+def k4_counted(path):
+    """K4's launches on a main-path run: the count set to 0 at entry, read
+    at exit into ``K4_LAUNCHES[path]`` and held to what the run's forwards
+    launch: each f32 VGG16 forward on the card, every convolution before
+    the first whose weight needs a gradient (13 with none, 10 in a step
+    that trains conv5), and each quantized forward's f32 prefix (the layers
+    before ``quant_from``: 2)."""
+    from openibl_tpu_torch.models.vgg import VGG16, VGG16_LAYERS
+    from openibl_tpu_torch.ops import conv_kernel as ck
+    from openibl_tpu_torch.ops.quant import QuantVGG16
+
+    names = [layer[0] for layer in VGG16_LAYERS]
+    want = [0]
+    vgg_forward, quant_forward = VGG16.forward, QuantVGG16.forward
+
+    def f32_on_card(module, images):
+        return images.is_cuda and module.compute_dtype == torch.float32
+
+    def vgg(self, images, *args, **kwargs):
+        if f32_on_card(self, images):
+            grads = [torch.is_grad_enabled()
+                     and getattr(self, name).weight.requires_grad
+                     for name in names]
+            want[0] += grads.index(True) if any(grads) else len(names)
+        return vgg_forward(self, images, *args, **kwargs)
+
+    def quant(self, images, *args, **kwargs):
+        if f32_on_card(self, images):
+            want[0] += names.index(self.quant_from)
+        return quant_forward(self, images, *args, **kwargs)
+
+    VGG16.forward, QuantVGG16.forward = vgg, quant
+    ck.conv3x3_f32.launches = 0  # the path starts
+    try:
+        yield
+    finally:
+        VGG16.forward, QuantVGG16.forward = vgg_forward, quant_forward
+    launches = K4_LAUNCHES[path] = ck.conv3x3_f32.launches  # path ends
+    check(launches == want[0] > 0,
+          f"K4 launched {launches} times on the {path} path, as its "
+          f"forwards launch ({want[0]})")
+
+
+def k4_phase(dev, card, seed):
+    """K4 at the main path's shapes: each of conv1_1..conv5_3 at 480x640
+    (conv1_1's 3 channels padded to 32 by the wrapper, the padding timed
+    with it) on seeded post-ReLU inputs and Kaiming weights, at batch 16 and
+    1, held to
+    the f64 convolution (within 2e-6 of each output's sum of |x| * |w| +
+    |b|, tests/test_torch_conv_kernel.py's SPLIT_TOL; cuDNN's f32 and TF32
+    errors printed beside), timed (CUDA events) beside its plain version
+    (cuDNN f32 + ReLU, TF32 off), cuDNN's f32 convolution (TF32 off, one
+    call: the yardstick, never called by the port) and every forced
+    geometry. Returns (the per-layer rows, the calls for phase 10's
+    device times)."""
+    import torch.nn.functional as F
+
+    from openibl_tpu_torch.models.vgg import VGG16_LAYERS
+    from openibl_tpu_torch.ops import conv_kernel as ck
+    from openibl_tpu_torch.utils import f32_precision
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    layers, h, w = [], H, W
+    for name, cin, cout, relu, pool in VGG16_LAYERS:
+        layers.append((name, cin, cout, relu, h, w))
+        if pool:
+            h, w = h // 2, w // 2
+
+    def inputs(n, hh, ww, cin, cout):
+        x = torch.relu(torch.randn(n, hh, ww, cin, generator=gen,
+                                   device=dev)) * 2
+        wt = torch.randn(cout, cin, 3, 3, generator=gen, device=dev) * (
+            2 / (9 * cin)) ** 0.5
+        b = torch.randn(cout, generator=gen, device=dev) * 0.1
+        return x, wt, b
+
+    def cudnn(xc, wt, b):
+        with f32_precision():
+            return F.conv2d(xc, wt, b, padding=1)
+
+    print(f"phase K4: f32 3x3 convolutions in split TF32 at {H}x{W} "
+          f"[{card}]", flush=True)
+    rows, calls = [], []
+    for n in (N_IMG, 1):
+        for name, cin, cout, relu, hh, ww in layers:
+            x, wt, b = inputs(n, hh, ww, cin, cout)
+            xc = x.permute(0, 3, 1, 2)
+            y = ck.conv3x3_f32(x, wt, b, relu=relu)
+            again = ck.conv3x3_f32(x, wt, b, relu=relu)
+            torch.cuda.synchronize()
+            check(torch.equal(y, again), f"K4 {name} batch {n}: the same "
+                  f"bits on a second run")
+            err = k4_split_error(y, x, wt, b, relu)
+            with f32_precision():
+                plain = ck.conv3x3_plain(x, wt, b, relu=relu)
+            plain_err = k4_split_error(plain, x, wt, b, relu)
+            prev = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = True
+            tf32 = ck.conv3x3_plain(x, wt, b, relu=relu)
+            torch.backends.cudnn.allow_tf32 = prev
+            tf32_err = k4_split_error(tf32, x, wt, b, relu)
+            del y, again, plain, tf32
+            check(err <= 2e-6, f"K4 {name} batch {n} ({n},{hh},{ww},{cin})"
+                  f"->{cout}: error {err:.3g} of the sum of |x * w| "
+                  f"(cuDNN f32 {plain_err:.3g}, TF32 {tf32_err:.3g})")
+            cin_k = ck._padded(cin)  # conv1_1: 3 channels run as 32
+            geo = ck.conv_geometry(n, hh, ww, cin_k, cout, sms)
+
+            def k4(x=x, wt=wt, b=b, relu=relu):
+                return ck.conv3x3_f32(x, wt, b, relu=relu)
+
+            def plain_fn(x=x, wt=wt, b=b, relu=relu):
+                with f32_precision():
+                    return ck.conv3x3_plain(x, wt, b, relu=relu)
+
+            ms = cuda_ms(k4)
+            forced = {}
+            for th, tw, bn in ck.TILES:
+                if cout % bn:
+                    continue
+                ty, tx = -(-hh // th), -(-ww // tw)
+                st = ck.conv_stages(th, tw, bn)
+                tiles = n * ty * tx * (cout // bn)
+                g = ck.ConvGeometry(th, tw, ty, tx, bn, st, min(tiles, sms),
+                                    ck.conv_smem_bytes(th, tw, bn, st))
+                forced[f"{th}x{tw}/{bn}"] = cuda_ms(
+                    lambda g=g: ck._launch(x, wt, b, relu, geometry=g),
+                    reps=5, warmup=1)
+            best = min(forced, key=forced.get)
+            ops = 2 * 9 * n * hh * ww * cin * cout
+            moved = 4 * (n * hh * ww * (cin + cout) + 9 * cin * cout + cout)
+            entry = {"layer": name, "batch": n, "ms": ms,
+                     "plain_ms": cuda_ms(plain_fn),
+                     "cudnn_f32_ms": cuda_ms(lambda: cudnn(xc, wt, b)),
+                     "error": err, "cudnn_f32_error": plain_err,
+                     "tf32_error": tf32_err,
+                     "geometry": f"{geo.th}x{geo.tw}/{geo.bn} "
+                                 f"s{geo.stages} b{geo.blocks}",
+                     "best_forced": f"{best} {forced[best]:.4f} ms",
+                     "forced_ms": {k: round(v, 4) for k, v in forced.items()},
+                     "tflops": ops / ms / 1e9, "ops": ops, "bytes": moved,
+                     **bound(moved, ops, TF32_OPS_PER_MS)}
+            rows.append(entry)
+            print(f"  K4 {name} batch {n}: {ms:.4f} ms ({entry['tflops']:.1f}"
+                  f" TFLOP/s of f32 work), {entry['geometry']}; best forced "
+                  f"{entry['best_forced']}; plain {entry['plain_ms']:.4f} ms,"
+                  f" cuDNN f32 {entry['cudnn_f32_ms']:.4f} ms; bound "
+                  f"{entry['bound_ms']:.4f} ms [{card}]", flush=True)
+            print(f"    forced: {entry['forced_ms']} [{card}]")
+            calls.append((f"K4 {name} batch {n}", k4, entry))
+            calls.append((f"cuDNN f32 {name} batch {n}",
+                          lambda xc=xc, wt=wt, b=b: cudnn(xc, wt, b), entry,
+                          "cudnn_f32_device_ms"))
+    return rows, calls
+
+
+def k4_entry(layers):
+    """K4's kernels-line entry: the sums over one f32 forward's thirteen
+    launches at batch 16 and, under ``batch1``, at batch 1, with the
+    per-layer rows."""
+    def sums(batch):
+        rows = [r for r in layers if r["batch"] == batch]
+
+        def total(key):
+            vals = [r.get(key) for r in rows]
+            return None if any(v is None for v in vals) else sum(vals)
+
+        ops, moved = total("ops"), total("bytes")
+        out = {"ms": total("ms"), "plain_ms": total("plain_ms"),
+               "library_ms": total("cudnn_f32_ms"),
+               "device_ms": total("device_ms"),
+               "library_device_ms": total("cudnn_f32_device_ms"),
+               **bound(moved, ops, TF32_OPS_PER_MS),
+               "per": f"one f32 forward's conv1_1..conv5_3 at batch "
+                      f"{batch}, {H}x{W}: {len(rows)} launches, summed"}
+        if out["device_ms"]:
+            out["share"] = out["bound_ms"] / out["device_ms"]
+        return out
+
+    return {**sums(N_IMG), "batch1": sums(1), "layers": layers}
+
+
 def tuples_tie_equal(ours, theirs, qf, gf, n_q, tie=5e-3):
     """Mined tuples agree anchor by anchor; a differing positive, or a
     differing negative at one rank, must be a distance tie (sq-dist gap
@@ -1423,10 +1653,11 @@ def train_phase(dev, card, seed, tmp):
     Trainer.step = counted_step
     t0 = time.perf_counter()
     try:
-        nk.netvlad_fused.launches = 0  # the training path starts
-        model, final, history = pipeline.run_baseline_training(
-            cfg, device=dev, verbose=False, timer=timer)
-        launches = nk.netvlad_fused.launches  # the training path ends
+        with k4_counted("train"):
+            nk.netvlad_fused.launches = 0  # the training path starts
+            model, final, history = pipeline.run_baseline_training(
+                cfg, device=dev, verbose=False, timer=timer)
+            launches = nk.netvlad_fused.launches  # the training path ends
     finally:
         Trainer.step = step
     wall = time.perf_counter() - t0
@@ -1725,10 +1956,11 @@ def sfrs_phase(dev, card, seed, tmp):
     SFRSTrainer.step, rerank.JaccardEngine.query = counted_step, seen_query
     t0 = time.perf_counter()
     try:
-        nk.netvlad_fused.launches = 0  # the SFRS path starts
-        model, final = pipeline.run_sfrs_training(cfg, device=dev,
-                                                  verbose=False, timer=timer)
-        launches = nk.netvlad_fused.launches  # the SFRS path ends
+        with k4_counted("sfrs"):
+            nk.netvlad_fused.launches = 0  # the SFRS path starts
+            model, final = pipeline.run_sfrs_training(
+                cfg, device=dev, verbose=False, timer=timer)
+            launches = nk.netvlad_fused.launches  # the SFRS path ends
     finally:
         SFRSTrainer.step, rerank.JaccardEngine.query = step, query
     print(f"phase sfrs: run_sfrs_training (2 generations x 1 epoch) in "
@@ -2087,9 +2319,10 @@ def tokyo_phase(eval_tree, dev, card, seed, tmp):
     Evaluator.extract = counted_extract
     t0 = time.perf_counter()
     try:
-        nk.netvlad_fused.launches = 0  # the Tokyo eval path starts
-        recalls = pipeline.run_eval(cfg, verbose=False, timer=timer)
-        launches = nk.netvlad_fused.launches  # the Tokyo eval path ends
+        with k4_counted("tokyo_eval"):
+            nk.netvlad_fused.launches = 0  # the Tokyo eval path starts
+            recalls = pipeline.run_eval(cfg, verbose=False, timer=timer)
+            launches = nk.netvlad_fused.launches  # ... and ends
     finally:
         Evaluator.extract = extract
     wall = time.perf_counter() - t0
@@ -2196,10 +2429,11 @@ def tokyo_phase(eval_tree, dev, card, seed, tmp):
     Evaluator.extract = counted_extract
     t0 = time.perf_counter()
     try:
-        nk.netvlad_fused.launches = 0  # the rerank eval path starts
-        rr_recalls = pipeline.run_eval(rr_cfg, verbose=False,
-                                       timer=rr_timer)
-        rr_launches = nk.netvlad_fused.launches  # ... and ends
+        with k4_counted("tokyo_eval_rerank"):
+            nk.netvlad_fused.launches = 0  # the rerank eval path starts
+            rr_recalls = pipeline.run_eval(rr_cfg, verbose=False,
+                                           timer=rr_timer)
+            rr_launches = nk.netvlad_fused.launches  # ... and ends
     finally:
         Evaluator.extract = extract
     print(f"phase tokyo: run_eval with the k-reciprocal rerank (k1 25, "
@@ -3674,10 +3908,12 @@ def run(dev, seed=0):
     # -- phase 1: build the kernels; phase 2: each against its plain -------
     build_kernels(card)
     k3_sass(card)
+    k4_sass(card)
     k1, k1_calls = check_k1(dev, card, seed)
     k2, k2_calls = check_k2(dev, card, seed)
     probes, probe_calls = check_probes(dev, card)
     probe_k2_calls = check_probes_k2(dev, card, seed)
+    k4_rows, k4_calls = k4_phase(dev, card, seed)
 
     # -- phase 3: the model, NetVLAD bootstrapped from its conv5 features ----
     rng = np.random.RandomState(seed)
@@ -3781,32 +4017,35 @@ def run(dev, seed=0):
                                      serve_torch.make_handler(service))
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
-        nk.netvlad_fused.launches = 0  # the main path's run starts here
-        try:
-            base = f"http://127.0.0.1:{server.server_address[1]}"
-            with urllib.request.urlopen(base + "/healthz", timeout=120) as r:
-                health = json.loads(r.read())
-            check(health == {"ok": True, "index_size": GALLERY},
-                  f"/healthz {health}")
-            for j in range(4):
-                buf = io.BytesIO()
-                Image.fromarray(images[j]).save(buf, format="PNG")
-                req = urllib.request.Request(base + "/query?topk=5",
-                                             data=buf.getvalue(),
-                                             method="POST")
-                with urllib.request.urlopen(req, timeout=120) as r:
-                    matches = json.loads(r.read())["matches"]
-                check(matches[0]["index"] == int(rows[j])
-                      and matches[0]["path"] == f"g{int(rows[j]):06d}.jpg",
-                      f"HTTP /query image {j}: top-1 = planted row "
-                      f"{matches[0]['index']}, sq_dist "
-                      f"{matches[0]['sq_dist']:.3g}")
-        finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(timeout=60)
-        results = service.query(list(images), topk=10)
-        k1_launches = nk.netvlad_fused.launches  # the main path's run ends
+        with k4_counted("serve_exact"):
+            nk.netvlad_fused.launches = 0  # the main path's run starts here
+            try:
+                base = f"http://127.0.0.1:{server.server_address[1]}"
+                with urllib.request.urlopen(base + "/healthz",
+                                            timeout=120) as r:
+                    health = json.loads(r.read())
+                check(health == {"ok": True, "index_size": GALLERY},
+                      f"/healthz {health}")
+                for j in range(4):
+                    buf = io.BytesIO()
+                    Image.fromarray(images[j]).save(buf, format="PNG")
+                    req = urllib.request.Request(base + "/query?topk=5",
+                                                 data=buf.getvalue(),
+                                                 method="POST")
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        matches = json.loads(r.read())["matches"]
+                    check(matches[0]["index"] == int(rows[j])
+                          and matches[0]["path"]
+                          == f"g{int(rows[j]):06d}.jpg",
+                          f"HTTP /query image {j}: top-1 = planted row "
+                          f"{matches[0]['index']}, sq_dist "
+                          f"{matches[0]['sq_dist']:.3g}")
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=60)
+            results = service.query(list(images), topk=10)
+            k1_launches = nk.netvlad_fused.launches  # the run ends
         check([r[0]["index"] for r in results] == rows.tolist(),
               f"service.query on {PLANTED} images: every top-1 is planted")
         check(k1_launches > 0,
@@ -3815,7 +4054,7 @@ def run(dev, seed=0):
         # -- phase 7: timings of extraction and the exact service ------------
         batch = imgs_dev[:N_IMG]
         rates = {}
-        with torch.inference_mode():
+        with torch.inference_mode(), k4_counted("extract"):
             for dtype in (torch.float32, torch.bfloat16):
                 model.base.compute_dtype = dtype
                 ms = cuda_ms(lambda: model(batch), reps=10, warmup=2)
@@ -3894,7 +4133,7 @@ def run(dev, seed=0):
     # -- phase 10: each kernel's host enqueue time, then the launch floor
     # and each device time (after every timed phase) ------------------------
     calls = [*k1_calls, *k2_calls, *probe_calls, *probe_k2_calls,
-             *k3_calls]
+             *k3_calls, *k4_calls]
     enqueue_times(calls, card)
     device_times(calls, dev, card)
     k3 = k3_entry(k3_calls)
@@ -3908,6 +4147,16 @@ def run(dev, seed=0):
               f"{e['cudnn_bf16_ms']:.4f} ms (device "
               f"{fmt_ms(e['cudnn_bf16_device_ms'])}), bound "
               f"{e['bound_ms']:.4f} ms [{card}]")
+    k4 = k4_entry(k4_rows)
+    for e in (k4, k4["batch1"]):
+        share = e.get("share")
+        print(f"K4 over {e['per']}: per call {e['ms']:.4f} ms, device "
+              f"{fmt_ms(e['device_ms'])}, plain {e['plain_ms']:.4f} ms, "
+              f"cuDNN f32 {e['library_ms']:.4f} ms (device "
+              f"{fmt_ms(e['library_device_ms'])}), bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}, TF32 peak), share "
+              f"{'not measured' if share is None else f'{share:.2%}'} "
+              f"[{card}]")
 
     print(json.dumps({"kernels": [
         {"name": "netvlad_fused", "route": "cuda",
@@ -3948,6 +4197,12 @@ def run(dev, seed=0):
                               **{f"bench_{k}": n
                                  for k, n in k3_bench.items()}},
          "max_abs_err": k3_err, **k3},
+        {"name": "conv3x3_f32", "route": "cuda",
+         "source": "openibl_tpu_torch/csrc/conv_f32.cu",
+         "replaces": "openibl_tpu/models/vgg.py (XLA's f32 convolutions, "
+                     "bias and ReLU, no pallas_call)",
+         "launches": sum(K4_LAUNCHES.values()),
+         "launches_by_path": dict(K4_LAUNCHES), **k4},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,9 +4,14 @@ The public layout is the JAX package's: images (N, H, W, 3) in, conv5_3 map
 (N, H/16, W/16, 512) out. Inside, the convolutions run on an NCHW view in
 ``channels_last`` memory, which is NHWC bytes: the input permute is free, and
 the conv5_3 map permuted back to NHWC is already a contiguous (N, P, C)
-array for the fused NetVLAD kernel. The convolutions stay cuDNN
-(``F.conv2d``), as the JAX package leaves them to XLA. conv5_3 keeps no ReLU
-and no pool (the reference drops features[-2:]).
+array for the fused NetVLAD kernel. An f32 convolution on CUDA that needs
+no gradient (all 13 of an inference forward, conv1_1's 3 channels padded
+to 32; conv1_1..conv4_3 of a SARE step that trains conv5) runs kernel K4
+(ops/conv_kernel.py: split TF32 on the tensor cores, bias and ReLU fused)
+on those NHWC bytes; the rest (the bf16 path, the CPU, any convolution that
+needs a gradient) stays ``F.conv2d`` + ``F.relu`` (cuDNN on the card), as
+the JAX package leaves them to XLA. conv5_3 keeps no ReLU and no pool (the
+reference drops features[-2:]).
 
 ``forward(images, valid_hw)`` is the masked variable-shape forward of the
 JAX package's ``vgg16_apply(valid_hw=...)``: images zero-padded to one
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from openibl_tpu_torch.data.transforms import PIXEL_MEAN
+from openibl_tpu_torch.ops.conv_kernel import conv3x3_f32, takes
 
 # (name, in_channels, out_channels, relu_after, pool_after)
 VGG16_LAYERS = (
@@ -134,10 +140,16 @@ class VGG16(nn.Module):
             x = torch.where(mask, x, 0)
         for name, _, _, relu, pool in VGG16_LAYERS:
             conv = getattr(self, name)
-            x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype),
-                         padding=1)
-            if relu:
-                x = F.relu(x)
+            if takes(x, conv.weight, conv.bias):
+                # K4 on the NHWC bytes, bias and ReLU fused, back as the
+                # NCHW view
+                x = conv3x3_f32(x.permute(0, 2, 3, 1), conv.weight,
+                                conv.bias, relu=relu).permute(0, 3, 1, 2)
+            else:
+                x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype),
+                             padding=1)
+                if relu:
+                    x = F.relu(x)
             if mask is not None:
                 x = torch.where(mask, x, 0)  # the bias made the pad non-zero
             if pool:

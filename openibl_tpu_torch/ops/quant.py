@@ -7,7 +7,8 @@ The scheme is the JAX package's, value for value:
   * activations: per-tensor symmetric int8, sx = max(amax, 1e-12) / 127 from
     a one-batch f32 calibration forward (``calibrate_vgg16``);
   * layers before ``quant_from`` (default conv2_1) run in the compute dtype
-    through cuDNN, as models/vgg.py does; at the boundary the activations
+    as models/vgg.py runs them (cuDNN, or kernel K4 for an f32 layer on
+    the card: conv1_1, conv1_2); at the boundary the activations
     are quantized once, round(x / s_in) clamped to [-128, 127];
   * every layer from ``quant_from`` on is one launch of kernel K3
     (ops/quant_kernel.py): the int8 convolution, then dequantize, bias, ReLU
@@ -43,6 +44,7 @@ from torch import nn
 
 from openibl_tpu_torch.data.transforms import PIXEL_MEAN
 from openibl_tpu_torch.models.vgg import FEATURE_DIM, VGG16_LAYERS, extent_mask
+from openibl_tpu_torch.ops.conv_kernel import conv3x3_f32, takes
 from openibl_tpu_torch.ops.quant_kernel import int8_conv
 from openibl_tpu_torch.utils import f32_precision
 
@@ -70,9 +72,13 @@ def _nhwc_mask(hw, h, w):
 
 
 def _float_conv(x, weight, bias, relu):
-    """3x3 SAME conv of an NHWC tensor through cuDNN on its NCHW view in
+    """3x3 SAME conv of an NHWC tensor, back as NHWC: kernel K4 where the
+    callers' rule takes it (``conv_kernel.takes``: CUDA, f32, no gradient),
+    else through cuDNN on its NCHW view in
     ``channels_last`` memory (a no-op for NHWC bytes; it also pins the
-    layout, and with it the algorithm, of a batch of one), back as NHWC."""
+    layout, and with it the algorithm, of a batch of one)."""
+    if takes(x, weight, bias):
+        return conv3x3_f32(x, weight, bias, relu=relu)
     x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     y = F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), padding=1)
     return (F.relu(y) if relu else y).permute(0, 2, 3, 1)

@@ -1,5 +1,6 @@
 """Inference hub API: the vgg16_netvlad descriptor model (port of
-openibl_tpu/hub.py).
+openibl_tpu/hub.py), and the port's own anyloc_dinov2_vitg14 (AnyLoc-VLAD
+on DINOv2 ViT-g/14, models/anyloc.py).
 
 VGG16 + NetVLAD + PCA-whitening to a 4096-d L2-normalized descriptor per
 480x640 image. Weights come from a released reference torch checkpoint, one
@@ -8,6 +9,7 @@ CUDA device the NetVLAD head runs the fused kernel (ops/netvlad_kernel.py),
 as the JAX package's no-grad paths switch on its fused head on the TPU.
 """
 
+import os
 import os.path as osp
 
 import numpy as np
@@ -100,6 +102,45 @@ def vgg16_netvlad(pretrained=None, num_clusters=64, pca_dim=4096,
             model.pca_layer.w.copy_(torch.from_numpy(proj))
             model.pca_layer.b.copy_(torch.from_numpy(bias))
     return model.to(device, memory_format=torch.channels_last).eval()
+
+
+def anyloc_dinov2_vitg14(pretrained=None, centers=None, device="cuda"):
+    """AnyLoc-VLAD-DINOv2 at its published widths, in eval mode on
+    ``device`` (the card by default; without one this raises unless
+    ``device="cpu"``): uint8 (N, H, W, 3) frames → (N, 49152) unit
+    descriptors (``models.anyloc.AnyLocVLAD``).
+
+    Args:
+      pretrained: DINOv2 ViT-g/14's weights under DINOv2's own state-dict
+        names (``dinov2_vitg14_pretrain.pth``): a path (loaded
+        weights-only) or the dict itself. Of block 31 the model keeps
+        norm1 and the value third of qkv; later blocks, ``norm`` and
+        ``mask_token`` are not held. None: DINOv2's training init, seeded.
+      centers: the (K, 1536) vocabulary (AnyLoc's ``c_centers.pt``): a
+        tensor, an array or a path to a torch file of one. None: 32 seeded
+        random unit centres.
+    The tensors are made on ``device`` directly (3.54 GB in f32)."""
+    from openibl_tpu_torch.models.dinov2 import build_facet
+
+    device = resolve_device(device)
+    if pretrained is not None and not isinstance(pretrained, dict):
+        pretrained = convert.load_torch_checkpoint(pretrained)
+    backbone = build_facet(device, pretrained,
+                           torch.Generator(device).manual_seed(0))
+    if centers is None:
+        centers = torch.nn.functional.normalize(torch.randn(
+            (32, backbone.embed_dim),
+            generator=torch.Generator().manual_seed(0)), dim=1)
+    elif isinstance(centers, (str, os.PathLike)):
+        centers = convert.load_torch_checkpoint(centers)
+    centers = torch.as_tensor(centers, dtype=torch.float32)
+    if centers.ndim != 2 or centers.shape[1] != backbone.embed_dim:
+        raise ValueError(f"centers of shape {tuple(centers.shape)}: want "
+                         f"(K, {backbone.embed_dim})")
+    model = models.create("anyloc_dinov2_vitg14", backbone=backbone,
+                          num_clusters=centers.shape[0]).to(device)
+    model.centers.copy_(centers)
+    return model.eval()
 
 
 class DescriptorExtractor:

@@ -1,5 +1,8 @@
-"""Model factory with the JAX package's registry names."""
+"""Model factory with the JAX package's registry names, and the port's
+own ``anyloc_dinov2_vitg14`` (AnyLoc-VLAD on DINOv2 ViT-g/14, which the JAX
+package does not have)."""
 
+from openibl_tpu_torch.models.anyloc import AnyLocVLAD
 from openibl_tpu_torch.models.vgg import VGG16
 from openibl_tpu_torch.models.netvlad import (
     NetVLAD,
@@ -18,6 +21,7 @@ __factory = {
     "embednet": EmbedNet,
     "embednetpca": EmbedNetPCA,
     "embedregionnet": EmbedRegionNet,
+    "anyloc_dinov2_vitg14": AnyLocVLAD,
 }
 
 

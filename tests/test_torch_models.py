@@ -70,8 +70,12 @@ def _images(seed, dtype=np.uint8, n=2):
 
 
 def test_registry_names():
-    assert models.names() == ["embednet", "embednetpca", "embedregionnet",
-                              "netvlad", "vgg16"] == jmodels.names()
+    # the JAX package's names, and the port's own AnyLoc model
+    assert models.names() == ["anyloc_dinov2_vitg14", "embednet",
+                              "embednetpca", "embedregionnet", "netvlad",
+                              "vgg16"]
+    assert [n for n in models.names() if n != "anyloc_dinov2_vitg14"] \
+        == jmodels.names()
     with pytest.raises(KeyError):
         models.create("resnet50")
 

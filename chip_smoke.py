@@ -2,7 +2,7 @@
 
   python3 chip_smoke.py
 
-Builds the port's five CUDA libraries from this checkout, one nvcc each,
+Builds the port's six CUDA libraries from this checkout, one nvcc each,
 in parallel: the fused NetVLAD head (K1, csrc/netvlad.cu), the PQ ADC tile
 scorer (K2, csrc/pq_adc.cu), the six kernels of the Mosaic layout probes
 (P1-P7, csrc/mosaic_probe.cu), the int8 3x3 convolution with the fused
@@ -12,7 +12,11 @@ VGG16 at 480x640 at batch 16 and 1 against the f64 convolution, timed
 beside its plain version, cuDNN's f32 convolution and every forced
 geometry; its launches are counted on each main-path run below and held
 to its forwards: 13 an f32 forward, 10 a step that trains conv5, 2 a
-quantized forward). Holds each to its plain
+quantized forward) and the f32 linear layer in split TF32 with its bias
+(K5, csrc/linear_f32.cu: each of AnyLoc's ViT-g/14 linears at batch 16
+and 1 against the f64 product, timed beside its plain version,
+torch.matmul and both tile shapes; its launches counted on the AnyLoc
+extract path, 125 a forward). Holds each to its plain
 PyTorch version on the card at the main path's shapes (the probes at the TPU script's own toy
 sizes, each row driven through the port's probe tool as its own path),
 then drives the serving path at full width:
@@ -227,7 +231,8 @@ K2_ROWS = (1_000_000, 999_983, GALLERY)  # 1M codes, a ragged N, main path
 PQ_M, NLIST, NPROBE, SHORTLIST = 64, 256, 16, 256
 KERNELS = {"netvlad": ["netvlad.cu"], "pq_adc": ["pq_adc.cu"],
            "mosaic_probe": ["mosaic_probe.cu"],
-           "quant_conv": ["quant_conv.cu"], "conv_f32": ["conv_f32.cu"]}
+           "quant_conv": ["quant_conv.cu"], "conv_f32": ["conv_f32.cu"],
+           "linear_f32": ["linear_f32.cu"]}
 # H100 SXM at 700 W (data sheet): HBM bytes, f32 CUDA-core operations and
 # dense tensor-core operations (TF32, bf16) per ms
 HBM_BYTES_PER_MS, F32_OPS_PER_MS = 3.35e9, 67e9
@@ -1564,6 +1569,154 @@ def k4_entry(layers):
         return out
 
     return {**sums(N_IMG), "batch1": sums(1), "layers": layers}
+
+
+def k5_sass(card):
+    """K5's SASS: TF32 wgmma (HGMMA) fed by TMA (UTMALDG), no mma.sync
+    (HMMA)."""
+    check_sass(card, "K5", "linear_f32", ("HGMMA", "UTMALDG", "HMMA"),
+               lambda c: c["HGMMA"] > 0 and c["UTMALDG"] > 0
+               and c["HMMA"] == 0,
+               "K5 runs wgmma fed by TMA (HGMMA, UTMALDG) and no mma.sync "
+               "(HMMA)")
+
+
+def k5_error(y, x, w, b):
+    """max over outputs of |y - the f64 product| / (the output's sum of
+    |x| * |w| + |b|): tests/test_torch_linear_kernel.py's measure."""
+    import torch.nn.functional as F
+
+    ref = F.linear(x.double(), w.double(), b.double())
+    scale = F.linear(x.double().abs(), w.double().abs(), b.double().abs())
+    err = float(((y.double() - ref).abs() / scale).max())
+    del ref, scale
+    return err
+
+
+# AnyLoc's ViT-g/14 linears: (name, K, N, launches a forward); token rows an
+# image: 1531, the facet's value rows 1530 (the patch tokens)
+K5_LINEARS = (("qkv", 1536, 4608, 31), ("proj", 1536, 1536, 31),
+              ("w12", 1536, 8192, 31), ("w3", 4096, 1536, 31),
+              ("facet_value", 1536, 1536, 1))
+
+
+def k5_phase(dev, card, seed):
+    """K5 at AnyLoc's shapes: each ViT linear at batch 16 and 1 on seeded
+    activations N(0, 1) and weights N(0, 0.02), held to the f64 product
+    (within 2e-6 of each output's sum of |x| * |w| + |b|, and no worse
+    there than cuBLAS's f32 GEMM), timed (CUDA events) beside its plain
+    version (``F.linear``, TF32 off) and ``torch.matmul`` on the same
+    operands (one call, TF32 off: the yardstick, never called by the port);
+    then K5's launches on the AnyLoc extract path (the
+    published model through ``extract_features``: 125 a forward). Returns
+    (the per-shape rows, the calls for phase 10's device times)."""
+    import torch.nn.functional as F
+
+    from openibl_tpu_torch.hub import anyloc_dinov2_vitg14
+    from openibl_tpu_torch.ops import linear_kernel as lk
+    from openibl_tpu_torch.parallel.extract import extract_features
+    from openibl_tpu_torch.utils import f32_precision
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"phase K5: AnyLoc's ViT linears in split TF32 [{card}]",
+          flush=True)
+    rows, calls = [], []
+    for n_img in (N_IMG, 1):
+        for name, k, n, per_forward in K5_LINEARS:
+            m = n_img * (1530 if name == "facet_value" else 1531)
+            x = torch.randn(m, k, generator=gen, device=dev)
+            w = torch.randn(n, k, generator=gen, device=dev) * 0.02
+            b = torch.randn(n, generator=gen, device=dev) * 0.02
+            y = lk.linear_f32(x, w, b)
+            again = lk.linear_f32(x, w, b)
+            torch.cuda.synchronize()
+            check(torch.equal(y, again), f"K5 {name} batch {n_img}: the "
+                  f"same bits on a second run")
+            err = k5_error(y, x, w, b)
+
+            def plain_fn(x=x, w=w, b=b):
+                with f32_precision():
+                    return lk.linear_plain(x, w, b)
+
+            def matmul_fn(x=x, w=w):
+                with f32_precision():
+                    return torch.matmul(x, w.T)
+
+            plain_err = k5_error(plain_fn(), x, w, b)
+            del y, again
+            check(err <= 2e-6 and err <= plain_err,
+                  f"K5 {name} batch {n_img} ({m},{k})x({n},{k}): error "
+                  f"{err:.3g} of the sum of |x * w| (cuBLAS f32 "
+                  f"{plain_err:.3g})")
+
+            def k5(x=x, w=w, b=b):
+                return lk.linear_f32(x, w, b)
+
+            ms = cuda_ms(k5)
+            ops = 2 * m * k * n
+            moved = 4 * (m * (k + n) + n * k + n)
+            entry = {"layer": name, "batch": n_img, "m": m, "k": k, "n": n,
+                     "per_forward": per_forward, "ms": ms,
+                     "plain_ms": cuda_ms(plain_fn),
+                     "matmul_ms": cuda_ms(matmul_fn), "error": err,
+                     "cublas_f32_error": plain_err,
+                     "blocks": lk.linear_blocks(m, n, sms),
+                     "tflops": ops / ms / 1e9, "ops": ops, "bytes": moved,
+                     **bound(moved, ops, TF32_OPS_PER_MS)}
+            rows.append(entry)
+            print(f"  K5 {name} batch {n_img}: {ms:.4f} ms "
+                  f"({entry['tflops']:.1f} TFLOP/s of f32 work), "
+                  f"{entry['blocks']} blocks; plain "
+                  f"{entry['plain_ms']:.4f} ms, torch.matmul "
+                  f"{entry['matmul_ms']:.4f} ms; bound "
+                  f"{entry['bound_ms']:.4f} ms [{card}]", flush=True)
+            calls.append((f"K5 {name} batch {n_img}", k5, entry))
+            calls.append((f"torch.matmul {name} batch {n_img}", matmul_fn,
+                          entry, "matmul_device_ms"))
+
+    # the main path: the published model through the index build's entry
+    model = anyloc_dinov2_vitg14(device=dev)
+    frames = np.random.RandomState(seed).randint(0, 256, (2, H, W, 3),
+                                                  dtype=np.uint8)
+    loader = [(frames, np.arange(2 * i, 2 * i + 2), 2) for i in range(2)]
+    lk.linear_f32.launches = 0
+    with torch.inference_mode():
+        desc = extract_features(model.eval(), loader, sort=False)
+    launches = lk.linear_f32.launches
+    check(desc.shape == (4, 49152) and launches == 2 * 125,
+          f"K5 launched {launches} times on the AnyLoc extract path "
+          f"(2 forwards, 125 linears each)")
+    del model
+    torch.cuda.empty_cache()
+    return rows, calls, launches
+
+
+def k5_entry(rows):
+    """K5's kernels-line entry: the sums over one AnyLoc forward's 125
+    linears (each shape's time by its launches a forward) at batch 16 and,
+    under ``batch1``, at batch 1, with the per-shape rows."""
+    def sums(batch):
+        these = [r for r in rows if r["batch"] == batch]
+
+        def total(key):
+            vals = [r.get(key) for r in these]
+            return None if any(v is None for v in vals) else sum(
+                r["per_forward"] * v for r, v in zip(these, vals))
+
+        ops, moved = total("ops"), total("bytes")
+        out = {"ms": total("ms"), "plain_ms": total("plain_ms"),
+               "library_ms": total("matmul_ms"),
+               "device_ms": total("device_ms"),
+               "library_device_ms": total("matmul_device_ms"),
+               **bound(moved, ops, TF32_OPS_PER_MS),
+               "per": f"one AnyLoc forward's 125 linears at batch {batch}, "
+                      f"summed"}
+        if out["device_ms"]:
+            out["share"] = out["bound_ms"] / out["device_ms"]
+        return out
+
+    return {**sums(N_IMG), "batch1": sums(1), "layers": rows}
 
 
 def tuples_tie_equal(ours, theirs, qf, gf, n_q, tie=5e-3):
@@ -3909,11 +4062,13 @@ def run(dev, seed=0):
     build_kernels(card)
     k3_sass(card)
     k4_sass(card)
+    k5_sass(card)
     k1, k1_calls = check_k1(dev, card, seed)
     k2, k2_calls = check_k2(dev, card, seed)
     probes, probe_calls = check_probes(dev, card)
     probe_k2_calls = check_probes_k2(dev, card, seed)
     k4_rows, k4_calls = k4_phase(dev, card, seed)
+    k5_rows, k5_calls, k5_launches = k5_phase(dev, card, seed)
 
     # -- phase 3: the model, NetVLAD bootstrapped from its conv5 features ----
     rng = np.random.RandomState(seed)
@@ -4133,7 +4288,7 @@ def run(dev, seed=0):
     # -- phase 10: each kernel's host enqueue time, then the launch floor
     # and each device time (after every timed phase) ------------------------
     calls = [*k1_calls, *k2_calls, *probe_calls, *probe_k2_calls,
-             *k3_calls, *k4_calls]
+             *k3_calls, *k4_calls, *k5_calls]
     enqueue_times(calls, card)
     device_times(calls, dev, card)
     k3 = k3_entry(k3_calls)
@@ -4153,6 +4308,17 @@ def run(dev, seed=0):
         print(f"K4 over {e['per']}: per call {e['ms']:.4f} ms, device "
               f"{fmt_ms(e['device_ms'])}, plain {e['plain_ms']:.4f} ms, "
               f"cuDNN f32 {e['library_ms']:.4f} ms (device "
+              f"{fmt_ms(e['library_device_ms'])}), bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}, TF32 peak), share "
+              f"{'not measured' if share is None else f'{share:.2%}'} "
+              f"[{card}]")
+
+    k5 = k5_entry(k5_rows)
+    for e in (k5, k5["batch1"]):
+        share = e.get("share")
+        print(f"K5 over {e['per']}: per call {e['ms']:.4f} ms, device "
+              f"{fmt_ms(e['device_ms'])}, plain {e['plain_ms']:.4f} ms, "
+              f"torch.matmul {e['library_ms']:.4f} ms (device "
               f"{fmt_ms(e['library_device_ms'])}), bound "
               f"{e['bound_ms']:.4f} ms ({e['bound_by']}, TF32 peak), share "
               f"{'not measured' if share is None else f'{share:.2%}'} "
@@ -4203,6 +4369,12 @@ def run(dev, seed=0):
                      "bias and ReLU, no pallas_call)",
          "launches": sum(K4_LAUNCHES.values()),
          "launches_by_path": dict(K4_LAUNCHES), **k4},
+        {"name": "linear_f32", "route": "cuda",
+         "source": "openibl_tpu_torch/csrc/linear_f32.cu",
+         "replaces": "none (no ViT in openibl_tpu; cuBLAS's f32 GEMM in "
+                     "models/dinov2.py before)",
+         "launches": k5_launches,
+         "launches_by_path": {"anyloc_extract": k5_launches}, **k5},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -27,6 +27,11 @@ Every held tensor keeps DINOv2's own state-dict name (``patch_embed.proj``,
 ``.ls2.gamma``) but block L's, held as ``facet.norm1`` and ``facet.value``;
 ``facet_state`` maps a published state dict onto them.
 
+Every linear (qkv, proj, w12, w3, the facet's value rows) is a ``Linear``:
+an ``nn.Linear`` whose forward sends a gradient-free f32 CUDA call to
+kernel K5 (ops/linear_kernel.py: split TF32 on the tensor cores, the bias
+fused) and every other call to ``F.linear``.
+
 Under a ``torch.profiler`` session each block records two
 ``utils.profiling`` spans with its stream's time: ``anyloc.attn`` (norm1,
 qkv, attention, proj, LayerScale, residual) and ``anyloc.mlp`` (norm2,
@@ -40,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from openibl_tpu_torch.ops.linear_kernel import linear_f32, takes
 from openibl_tpu_torch.utils import profiling
 
 # DINOv2's interpolate_offset: a scale factor of (grid + 0.1) / 37 in place
@@ -78,6 +84,16 @@ def interpolate_pos_embed(pos_embed, grid_h, grid_w,
                       grid.permute(0, 2, 3, 1).reshape(1, -1, dim)], dim=1)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` (its parameters, names and init) whose forward runs K5
+    where ``linear_kernel.takes`` says so, ``F.linear`` elsewhere."""
+
+    def forward(self, x):
+        if takes(x, self.weight, self.bias):
+            return linear_f32(x, self.weight, self.bias)
+        return F.linear(x, self.weight, self.bias)
+
+
 class PatchEmbed(nn.Module):
     """(B, 3, H, W) → (B, H/p * W/p, D): a p x p convolution of stride p."""
 
@@ -94,8 +110,8 @@ class Attention(nn.Module):
     def __init__(self, dim, num_heads):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x):
         b, n, c = x.shape
@@ -117,8 +133,8 @@ class LayerScale(nn.Module):
 class SwiGLU(nn.Module):
     def __init__(self, dim, hidden):
         super().__init__()
-        self.w12 = nn.Linear(dim, 2 * hidden)
-        self.w3 = nn.Linear(hidden, dim)
+        self.w12 = Linear(dim, 2 * hidden)
+        self.w3 = Linear(hidden, dim)
 
     def forward(self, x):
         x1, x2 = self.w12(x).chunk(2, dim=-1)
@@ -149,7 +165,7 @@ class ValueFacet(nn.Module):
     def __init__(self, dim, eps):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=eps)
-        self.value = nn.Linear(dim, dim)
+        self.value = Linear(dim, dim)
 
     def forward(self, x):
         return self.value(self.norm1(x))
